@@ -1,0 +1,115 @@
+"""State carried across the two packages.
+
+The system has no weights on its step path; layouts and states are what a
+caller would move between the JAX package and this port. These functions turn
+`SceneData` / `EnvState` given as numpy (field by field: a dict of arrays, with
+nested dicts for `props`, `agents` and `scen`) into the port's dataclasses and
+back. They take numpy only, so the port imports nothing of the JAX package; a
+caller holding JAX objects flattens them with `to_numpy_tree` (duck-typed on
+dataclass-like objects) first.
+
+Differences bridged here:
+  * the JAX package keeps one unbatched state per env and adds the batch with
+    vmap; arrays passed in must already carry the leading env axis B (a
+    vmapped/stacked JAX state does);
+  * packed solid columns are uint32 there and int32 (same bits) here;
+  * `EnvState.rng` is a PRNG key there and an int64 counter here (no device
+    code draws from either): it is not converted, the caller supplies one.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Type
+
+import numpy as np
+import torch
+
+from megaverse_tpu_torch.types import AgentState, EnvState, PropState, SceneData
+
+_SCENE_LEAVES = ("cols", "vterrain", "vobj", "box_lo", "box_hi", "box_color",
+                 "agent_spawn", "agent_yaw", "episode_len_sec")
+_STATE_LEAVES = ("cols", "vterrain", "vobj", "box_lo", "box_hi", "box_color",
+                 "done", "num_frames", "episode_sec", "episode_len_sec",
+                 "last_reward", "total_reward", "true_objective")
+
+
+def to_numpy_tree(obj) -> Any:
+    """Flatten a dataclass-like object (anything with `__dataclass_fields__`)
+    of array-likes into nested dicts of numpy arrays. Empty tuples / None
+    (scenarios without extra state) become None."""
+    if obj is None or (isinstance(obj, tuple) and not obj):
+        return None
+    if hasattr(obj, "__dataclass_fields__"):
+        return {name: to_numpy_tree(getattr(obj, name))
+                for name in obj.__dataclass_fields__}
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    return np.asarray(obj)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    arr = np.ascontiguousarray(np.asarray(x))
+    if arr.dtype == np.uint32:      # packed solid columns
+        arr = arr.view(np.int32)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def _sub(cls: Type, tree: Dict[str, Any], device):
+    return cls(**{f.name: _tensor(tree[f.name], device)
+                  for f in dataclasses.fields(cls)})
+
+
+def _scen(scen_cls: Optional[Type], tree, device):
+    if scen_cls is None or tree is None:
+        return None
+    return _sub(scen_cls, tree, device)
+
+
+def scene_from_numpy(tree: Dict[str, Any], scen_cls: Optional[Type] = None,
+                     device="cpu") -> SceneData:
+    """Nested dict of batched numpy arrays (SceneData fields) -> SceneData of
+    tensors. `scen_cls` is the port's scenario-state dataclass (e.g.
+    scenarios.tower_building.TowerState) or None."""
+    return SceneData(
+        **{k: _tensor(tree[k], device) for k in _SCENE_LEAVES},
+        props=_sub(PropState, tree["props"], device),
+        scen=_scen(scen_cls, tree.get("scen"), device))
+
+
+def state_from_numpy(tree: Dict[str, Any], scen_cls: Optional[Type] = None,
+                     device="cpu", rng: Optional[torch.Tensor] = None) -> EnvState:
+    """Nested dict of batched numpy arrays (EnvState fields) -> EnvState of
+    tensors. The `rng` entry of the dict, if any, is ignored (see module
+    docstring); pass the port's int64 [B] counter or get zeros."""
+    bsz = np.asarray(tree["done"]).shape[0]
+    if rng is None:
+        rng = torch.zeros((bsz,), dtype=torch.int64, device=device)
+    return EnvState(
+        **{k: _tensor(tree[k], device) for k in _STATE_LEAVES},
+        props=_sub(PropState, tree["props"], device),
+        agents=_sub(AgentState, tree["agents"], device),
+        rng=rng,
+        scen=_scen(scen_cls, tree.get("scen"), device))
+
+
+def tree_to_numpy(obj, unsigned_cols: bool = True) -> Any:
+    """The port's SceneData / EnvState -> nested dicts of numpy arrays in the
+    JAX package's dtypes (packed columns back to uint32)."""
+    tree = to_numpy_tree(obj)
+    if unsigned_cols and isinstance(tree, dict) and "cols" in tree:
+        tree["cols"] = tree["cols"].view(np.uint32)
+    return tree
+
+
+def render_inputs_to_numpy(tables: Dict[str, Any]) -> Dict[str, Any]:
+    """cams / prims / cull tables (env.render_tables) as numpy, unchanged in
+    layout: both packages use the same row formats."""
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+            for k, v in tables.items()}
+
+
+def render_inputs_from_numpy(tables: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    return {k: (torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                if isinstance(v, np.ndarray) else v)
+            for k, v in tables.items()}

@@ -1,0 +1,277 @@
+"""Batched environment step assembly (counterpart of megaverse_tpu/env.py).
+
+The reference's Env::step (env.cpp:83-152): action decode, scenario preStep,
+KCC physics, scenario step, timers, reward accumulation, becomes one function
+`env_step` over a batched EnvState, plus a masked auto-reset that consumes a
+pre-generated episode layout per env (replacing VectorEnv's serial reset of
+done envs, vector_env.cpp:89-108). `render_batch` turns a batch of states into
+observations through the render kernel (ops/raycast_cuda.py).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from megaverse_tpu_torch import constants as C
+from megaverse_tpu_torch.ops import physics as P
+from megaverse_tpu_torch.ops import raycast_cuda as RC
+from megaverse_tpu_torch.scenarios.base import Scenario
+from megaverse_tpu_torch.types import (
+    AgentState,
+    EnvState,
+    PropState,
+    SceneData,
+    state_from_scene,
+    tree_index,
+    tree_map,
+    tree_scatter,
+    tree_select,
+)
+
+
+class StepResult(NamedTuple):
+    state: EnvState
+    reward: torch.Tensor          # f32 [B, A]
+    done: torch.Tensor            # bool [B] (pre-reset, ref bindings semantics)
+    true_objective: torch.Tensor  # f32 [B, A] captured pre-reset (vector_env.cpp:96-103)
+
+
+DEFERRED_RESET_FIELDS = (
+    "cols", "vterrain", "vobj", "box_lo", "box_hi", "box_color", "props")
+
+
+def env_step(
+    scenario: Scenario,
+    state: EnvState,
+    next_scene: SceneData,
+    action: torch.Tensor,     # int32 [B, A] bitmask
+    shaping: torch.Tensor,    # f32 [B, A, K]
+    defer_reset: bool = False,
+) -> StepResult:
+    """One tick of every env of the batch. No host synchronisation: every
+    data-dependent choice is a masked select."""
+    cfg = scenario.cfg
+    dt = cfg.dt
+    vlimit = cfg.param(C.P_VERTICAL_LOOK_LIMIT)
+
+    # Controls (env.cpp:89-122).
+    agents = P.apply_look(state.agents, action, dt, vlimit)
+    agents = P.apply_acceleration(agents, action, dt)
+    state = state.replace(agents=agents)
+
+    # Scenario preStep (env.cpp:124).
+    state = scenario.pre_physics(state, action)
+
+    # Physics (env.cpp:126: bWorld.stepSimulation -> KCC playerStep per agent).
+    # The packed solid-column grid is the state's canonical collision
+    # representation (packed at generation time, updated incrementally by the
+    # voxel-mutating scenarios).
+    cols = state.cols
+    obbs = scenario.collision_obbs(state)
+    agents = P.player_step(cfg.grid, state.agents, dt, cols=cols, obbs=obbs)
+    agents = P.resolve_agent_collisions(agents, cfg.grid, cols=cols, obbs=obbs)
+    state = state.replace(agents=agents)
+
+    # Scenario logic + rewards (env.cpp:131).
+    state, reward = scenario.scen_step(state, action, shaping)
+
+    # Timers (env.cpp:133-151). scen_step may have bumped episode_sec via
+    # doneWithTimer semantics before the += dt.
+    episode_sec = state.episode_sec + dt
+    done = state.done | (episode_sec >= state.episode_len_sec)
+    state = state.replace(
+        episode_sec=episode_sec,
+        done=done,
+        last_reward=reward,
+        total_reward=state.total_reward + reward,
+        num_frames=state.num_frames + 1,
+    )
+
+    # Capture trueObjective before auto-reset (vector_env.cpp:94-103).
+    true_objective = state.true_objective
+
+    # Masked auto-reset from the pre-generated layout. With defer_reset the
+    # leaves that are PURE COPIES of the layout (grids, box/prop tables) are
+    # excluded from this per-env select; the caller patches them afterwards
+    # with apply_deferred_resets.
+    rng = state.rng + 1
+    fresh = state_from_scene(next_scene, cfg.num_agents, rng)
+    if defer_reset:
+        fresh = fresh.replace(
+            **{f: getattr(state, f) for f in DEFERRED_RESET_FIELDS})
+        dsf = scenario.deferred_scen_fields
+        if dsf:
+            fresh = fresh.replace(scen=fresh.scen.replace(
+                **{k: getattr(state.scen, k) for k in dsf}))
+    state = tree_select(done, fresh, state.replace(rng=rng))
+
+    return StepResult(state, reward, done, true_objective)
+
+
+def should_defer_reset(scenario) -> bool:
+    """Whether the K-slot deferred auto-reset could pay for a scenario: it
+    replaces the per-step full select of the layout-copy leaves with a sort +
+    gather/scatter, which only wins when those leaves are big. Estimates their
+    per-env footprint from static capacities (grids dominate); below 32 KB/env
+    the plain inline select is taken."""
+    cfg = scenario.cfg
+    x, y, z = cfg.grid.dims
+    cells = x * y * z
+    approx = 4 * x * (-(-y // 32)) * z            # packed cols
+    if cfg.needs_terrain_grid:
+        approx += cells                            # vterrain u8
+    if cfg.needs_object_grid:
+        approx += 2 * cells                        # vobj i16
+    approx += int(scenario.max_boxes) * 28         # box_lo/hi f32 + color
+    approx += int(cfg.max_props) * 44              # PropState rows
+    return approx > 32 * 1024
+
+
+def reset_slot_count(num_envs: int, episode_len_sec: float) -> int:
+    """Slot budget for apply_deferred_resets. The K-slot gather/scatter moves
+    max_slots envs' full layouts EVERY step regardless of how many actually
+    finished, so oversized slots cost real bandwidth. Expected resets per step
+    are num_envs / episode_steps; 8x that covers the Poisson tail, and genuine
+    sync bursts (first-cycle timeouts) take the full-select branch."""
+    steps = max(1.0, float(episode_len_sec) * C.DEFAULT_FRAME_RATE)
+    expected = num_envs / steps
+    k = 4
+    while k < 8 * expected and k < 32:
+        k *= 2
+    return k
+
+
+def apply_deferred_resets(state, next_scenes, done, max_slots: int = 32,
+                          scen_fields: tuple = ()):
+    """Completion of env_step(defer_reset=True): copy the layout-copy leaves
+    (DEFERRED_RESET_FIELDS) from next_scenes into the state for done envs.
+
+    When <= max_slots envs finished, a K-slot gather/scatter moves only those
+    envs' layouts; otherwise the full masked select runs. Bit-identical to the
+    inline select: the copied values are exactly state_from_scene's
+    passthrough of the scene fields. Choosing the branch reads the done count
+    on the host (one device-to-host sync), which is why `VectorEnv` does not
+    use this path inside `step_many` and takes the inline select instead."""
+    bsz = done.shape[0]
+    k = min(max_slots, bsz)
+    few = int(done.sum()) <= k
+    if few:
+        # ascending done indices, then `bsz` sentinels (dropped by the scatter)
+        ar = torch.arange(bsz, dtype=torch.long, device=done.device)
+        idx = torch.sort(torch.where(done, ar, torch.full_like(ar, bsz))).values[:k]
+        gidx = torch.clamp(idx, max=bsz - 1)      # gather-safe
+        op = lambda dst, src: tree_scatter(dst, idx, tree_index(src, gidx))
+    else:
+        op = lambda dst, src: tree_select(done, src, dst)
+
+    patched = {f: op(getattr(state, f), getattr(next_scenes, f))
+               for f in DEFERRED_RESET_FIELDS}
+    if scen_fields:
+        patched["scen"] = state.scen.replace(**{
+            k_: op(getattr(state.scen, k_), getattr(next_scenes.scen, k_))
+            for k_ in scen_fields})
+    return state.replace(**patched)
+
+
+class RenderView(NamedTuple):
+    """The subset of EnvState the batched renderer reads."""
+    box_lo: torch.Tensor
+    box_hi: torch.Tensor
+    box_color: torch.Tensor
+    props: PropState
+    agents: AgentState
+    episode_sec: torch.Tensor
+    episode_len_sec: torch.Tensor
+    last_reward: torch.Tensor
+
+    def replace(self, **kw) -> "RenderView":
+        return self._replace(**kw)
+
+
+def render_view(states: EnvState) -> RenderView:
+    return RenderView(
+        box_lo=states.box_lo, box_hi=states.box_hi, box_color=states.box_color,
+        props=states.props, agents=states.agents,
+        episode_sec=states.episode_sec, episode_len_sec=states.episode_len_sec,
+        last_reward=states.last_reward,
+    )
+
+
+def render_tables(scenario: Scenario, states, bucket: Optional[tuple] = None,
+                  cull: bool = True) -> dict:
+    """Everything `raycast_cuda.render_packed` takes for a batch of states, as
+    keyword arguments: cams, prims and (with `cull`) the bit-walk tables.
+
+    bucket=(max_boxes, max_props): slice the per-env box/prop tables to the
+    actual batch usage before building the table. Scenario capacities are
+    worst-case, so rendering only the live prefix keeps the tables short.
+    Correct because generation packs live rows first and padding rows are
+    never activated at runtime (pos/scale/flags mutate; type never does)."""
+    cfg = scenario.cfg
+    segments = cfg.prop_segments
+    box_lo, box_hi, box_color = states.box_lo, states.box_hi, states.box_color
+    props = states.props
+    if bucket is not None:
+        mb = max(1, min(int(bucket[0]), box_color.shape[1]))
+        pb = bucket[1]
+        if segments:
+            # Per-segment live-prefix slicing: each typed region keeps only
+            # its bucketed prefix.
+            counts = [min(int(k), cap) for k, (_, _, cap) in zip(pb, segments)]
+            keep = [(start, k) for (_, start, cap), k in zip(segments, counts) if k]
+            if keep:
+                props = tree_map(
+                    lambda x: torch.cat([x[:, s:s + k] for s, k in keep], dim=1), props)
+            else:
+                props = tree_map(lambda x: x[:, :0], props)
+        else:
+            # pb == 0 is allowed: a scenario whose layouts never contain props
+            # (Empty) renders zero prop rows.
+            pb = max(0, min(int(pb), props.type.shape[1]))
+            props = tree_map(lambda x: x[:, :pb], props)
+        box_lo, box_hi, box_color = box_lo[:, :mb], box_hi[:, :mb], box_color[:, :mb]
+    remaining = torch.clamp(
+        (states.episode_len_sec - states.episode_sec) / states.episode_len_sec,
+        min=0.0)  # [B]
+    # Single-agent first-person views can never see the own body/eyes (camera
+    # inside, inside hits culled): drop those rows from the table.
+    include_agents = cfg.num_agents > 1
+    cams = RC.build_cams(cfg, states.agents, remaining, states.last_reward)
+    prims = RC.build_prim_table(cfg, box_lo, box_hi, box_color, props,
+                                states.agents, include_agent_rows=include_agents)
+    ui_ind = float(cfg.params.get(C.P_USE_UI_REWARD_INDICATORS, 0.0)) > 0
+    if not cull:
+        return dict(cams=cams, prims=prims, ui_indicators=ui_ind)
+    # Bit-walk prologue: plain elementwise tensor code plus one small sort.
+    prims, clusters = RC.build_clusters(prims)
+    clusters, _ = RC.build_superclusters(clusters)
+    prims = RC.pad_prims_to_clusters(prims, clusters)
+    # the per-row visibility mask of the hex scenarios is not ported yet
+    assert scenario.render_row_mask(states) is None
+    sclist, clbits, scdist, cdist = RC.cull_bits(
+        cams, clusters, cfg.obs_height, cfg.obs_width)
+    return dict(cams=cams, prims=prims.contiguous(), clusters=clusters.contiguous(),
+                sclist=sclist, clbits=clbits, scdist=scdist, cdist=cdist,
+                ui_indicators=ui_ind)
+
+
+def render_batch(scenario: Scenario, states, fmt: str = "rgb",
+                 bucket: Optional[tuple] = None, cull: bool = True) -> torch.Tensor:
+    """Observations for a BATCH of envs (post-reset frame for done envs,
+    matching vector_env.cpp:94-107 draw ordering).
+
+    fmt="rgb": uint8 [B, A, H, W, 3]. fmt="packed": int32 [B, A, H, W] with
+    RGB in the low 24 bits, the on-device format. The whole env x agent camera
+    batch renders in ONE kernel launch (the analogue of the reference's single
+    batched Vulkan submission, v4r_env_renderer.cpp:338-355): the bit-walk form
+    by default, the unculled in-order form with cull=False. Every scenario
+    goes through the kernel on a CUDA device and through its plain PyTorch
+    version on the CPU."""
+    cfg = scenario.cfg
+    tables = render_tables(scenario, states, bucket=bucket, cull=cull)
+    packed = RC.render_packed(height=cfg.obs_height, width=cfg.obs_width, **tables)
+    if fmt == "packed":
+        return packed
+    return RC.unpack_rgb(packed)

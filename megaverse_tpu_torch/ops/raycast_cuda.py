@@ -1,0 +1,691 @@
+"""CUDA kernel wrapper for the analytic raycasting renderer.
+
+Counterpart of megaverse_tpu/ops/raycast_pallas.py. The Pallas program
+`_render_kernel` (launched from that module's `render_packed`) becomes the
+hand-written CUDA C++ kernels of csrc/render.cu, of which two forms are ported:
+B1 (unculled, rows in table order) and B2 (the bit-walk traversal the product
+path uses). What bounds them on an H100 is f32 arithmetic per visited table
+row, not memory traffic (a frame reads a few KB of tables per env and writes
+4 bytes per pixel); the design keeps each pixel's ray and closest-hit carry in
+registers and relies on the cull tables built here to visit few rows.
+
+The tables the kernel consumes are plain PyTorch, batched over envs:
+  1. build_prim_table: unified primitive rows [B, M, 12] (layout below);
+  2. build_clusters / build_superclusters / pad_prims_to_clusters: rows grouped
+     into 8-row clusters and 4-cluster superclusters with conservative AABBs
+     and a homogeneity tag;
+  3. cull_bits: per (env, agent, 8x128 pixel tile) a front-to-back list of
+     surviving superclusters, member bitmasks, and eye-distance lower bounds.
+
+Unified primitive row (12 f32):
+  [0]     type: 0=aabb, 1=ellipsoid, 2=cylinder-y, 3=cone-y, 4=cone-y flipped,
+          5=yaw/pitch-rotated eye box, 6=y-rotated box, 7=fused wall+edging,
+          <0 = unused slot
+  [1:4]   a: box lo / center / camera pos
+  [4:7]   b: box hi / radii / (rx, rz, half_h) / (yaw, pitch, -) /
+          (yaw, cos yaw, sin yaw) for rotated boxes
+  [7]     rgb albedo packed as float((r8<<16)|(g8<<8)|b8)
+  [8:11]  c: rotated-box half extents (types 6, 7)
+  [11]    edging packed colour (type 7)
+Camera row (8 f32): eye xyz, yaw, pitch, time_fraction, lastReward, pad.
+Output: packed RGB int32 [B, A, H, W].
+
+`render_packed` launches the kernel for CUDA tensors and raises on any build
+or launch failure; it takes the plain PyTorch version (`render_packed_plain`,
+ops/raycast.py) only for tensors that lie on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from megaverse_tpu_torch import constants as C
+from megaverse_tpu_torch.ops import raycast as R
+from megaverse_tpu_torch.types import AgentState, EnvConfig, PropState, PROP_FLAG_VISIBLE
+
+INF = 1e30
+TILE_H = R.TILE_H
+TILE_W = R.TILE_W
+CLUSTER_K = 8   # rows per cluster
+SUPER_K = 4     # clusters per supercluster
+# Conservative bound radius of the eye box: |offset| + |half extents|
+# (0.19 + 0.342), valid for every yaw/pitch.
+_EYE_BOUND = 0.54
+ROW_W = 12
+
+PRIM_AABB = R.PRIM_AABB
+PRIM_ELLIPSOID = R.PRIM_ELLIPSOID
+PRIM_CYLINDER = R.PRIM_CYLINDER
+PRIM_CONE = R.PRIM_CONE
+PRIM_CONE_FLIPPED = R.PRIM_CONE_FLIPPED
+PRIM_EYEBOX = R.PRIM_EYEBOX
+PRIM_ROTBOX = R.PRIM_ROTBOX
+PRIM_ROTBOX_WALL = R.PRIM_ROTBOX_WALL
+TAG_CONE_MIXED = 8  # cluster tag: live rows are CONE / CONE_FLIPPED mixed
+
+# Launch counts: each wrapper adds one where it launches its kernel, nowhere
+# else.
+LAUNCHES = {"render_b1": 0, "render_b2": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Build + bind (nvcc -> shared library with a plain C interface -> ctypes).
+# ---------------------------------------------------------------------------
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # B2 == B1 bit for bit needs identical rounding in every row body: no FMA
+    # contraction, no fast-math (see csrc/render.cu).
+    "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_lib = None
+_lib_lock = threading.Lock()
+BUILD_INFO = {"seconds": None, "log": None, "nvcc": None}
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the render kernels are built from "
+                       "megaverse_tpu_torch/csrc at first use and need the CUDA toolkit")
+
+
+def build_library(source: Path = CSRC_DIR / "render.cu") -> Path:
+    """Compile one .cu into build/lib<stem>_<hash>.so (skipped if that exact
+    source + flags was built before). Raises with the compiler's output on
+    failure."""
+    nvcc = find_nvcc()
+    text = source.read_bytes()
+    tag = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"lib{source.stem}_{tag}.so"
+    BUILD_INFO["nvcc"] = nvcc
+    if out.exists():
+        return out
+    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True)
+    BUILD_INFO["seconds"] = time.perf_counter() - t0
+    BUILD_INFO["log"] = (proc.stdout + proc.stderr).strip()
+    (BUILD_DIR / f"{source.stem}.nvcc.log").write_text(BUILD_INFO["log"] + "\n")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{BUILD_INFO['log']}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_library():
+    """Build (first use) and bind csrc/render.cu. Raises on any failure."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build_library()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mv_render_b1.restype = i
+        lib.mv_render_b1.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.mv_render_b2.restype = i
+        lib.mv_render_b2.argtypes = [p, p, p, p, p, p, p, p, p,
+                                     i, i, i, i, i, i, i, p, p]
+        lib.mv_render_blocks_per_tile.restype = i
+        lib.mv_render_blocks_per_tile.argtypes = []
+        lib.mv_render_const_count.restype = i
+        lib.mv_render_const_count.argtypes = []
+        if lib.mv_render_const_count() != R.K_COUNT:
+            raise RuntimeError("render.cu and ops/raycast.py disagree on the "
+                               "constant table layout")
+        _lib = lib
+        return _lib
+
+
+@functools.lru_cache(maxsize=16)
+def _device_constants(height: int, width: int, device_str: str) -> torch.Tensor:
+    return torch.from_numpy(R.render_constants(height, width)).to(device_str)
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def render_packed(cams: torch.Tensor, prims: torch.Tensor, height: int, width: int,
+                  clusters: Optional[torch.Tensor] = None,
+                  sclist: Optional[torch.Tensor] = None,
+                  clbits: Optional[torch.Tensor] = None,
+                  scdist: Optional[torch.Tensor] = None,
+                  cdist: Optional[torch.Tensor] = None,
+                  ui_indicators: bool = False,
+                  visits: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """cams [B, A, 8] f32, prims [B, M, 12] f32 -> packed RGB int32 [B,A,H,W].
+
+    Without cull tables: form B1 (every row, in table order). With `clusters`
+    [B, G, 8], `sclist` int32 [B, A, T, S], `clbits` int32 [B, A, T, ceil(G/32)],
+    `scdist` f32 [B, A, T, S] and `cdist` f32 [B, A, G] (from build_clusters,
+    build_superclusters, pad_prims_to_clusters and cull_bits; T = H/8,
+    S = G/4, M == 8 G): form B2, the bit-walk. Both forms give the same image.
+
+    CUDA tensors launch the kernel (built at first use) or raise; CPU tensors
+    take the plain PyTorch version. `visits` (measurement only, bit-walk form
+    on CUDA): an int32 tensor from `new_visits` that receives, per thread
+    block, the number of all-AABB and of other clusters the block ran."""
+    if cams.device.type != "cuda":
+        return render_packed_plain(cams, prims, height, width, clusters=clusters,
+                                   sclist=sclist, clbits=clbits, scdist=scdist,
+                                   cdist=cdist, ui_indicators=ui_indicators)
+    if height % TILE_H != 0 or width != TILE_W:
+        raise ValueError(f"render_packed needs H % {TILE_H} == 0 and W == {TILE_W}, "
+                         f"got {(height, width)}")
+    dev = cams.device
+    bsz, num_agents = cams.shape[0], cams.shape[1]
+    num_prims = prims.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    _check("cams", cams, f32, (bsz, num_agents, 8), dev)
+    _check("prims", prims, f32, (bsz, num_prims, ROW_W), dev)
+    lib = load_library()
+    kc = _device_constants(height, width, str(dev))
+    out = torch.empty((bsz, num_agents, height, width), dtype=i32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ui = 1 if ui_indicators else 0
+    with torch.cuda.device(dev):
+        if clusters is None:
+            LAUNCHES["render_b1"] += 1
+            err = lib.mv_render_b1(cams.data_ptr(), prims.data_ptr(), kc.data_ptr(),
+                                   out.data_ptr(), bsz, num_agents, height,
+                                   num_prims, ui, stream)
+        else:
+            if any(x is None for x in (sclist, clbits, scdist, cdist)):
+                raise ValueError("bit-walk form needs sclist, clbits, scdist and cdist")
+            g = clusters.shape[1]
+            t = height // TILE_H
+            if num_prims != g * CLUSTER_K or g % SUPER_K != 0:
+                raise ValueError(f"bit-walk form needs M == {CLUSTER_K}*G and "
+                                 f"G % {SUPER_K} == 0, got M={num_prims}, G={g}")
+            s = g // SUPER_K
+            words = -(-g // 32)
+            _check("clusters", clusters, f32, (bsz, g, 8), dev)
+            _check("sclist", sclist, i32, (bsz, num_agents, t, s), dev)
+            _check("clbits", clbits, i32, (bsz, num_agents, t, words), dev)
+            _check("scdist", scdist, f32, (bsz, num_agents, t, s), dev)
+            _check("cdist", cdist, f32, (bsz, num_agents, g), dev)
+            if visits is not None:
+                nblk = bsz * num_agents * t * lib.mv_render_blocks_per_tile()
+                _check("visits", visits, i32, (nblk, 2), dev)
+            LAUNCHES["render_b2"] += 1
+            err = lib.mv_render_b2(cams.data_ptr(), prims.data_ptr(), clusters.data_ptr(),
+                                   sclist.data_ptr(), clbits.data_ptr(),
+                                   scdist.data_ptr(), cdist.data_ptr(), kc.data_ptr(),
+                                   out.data_ptr(), bsz, num_agents, height, num_prims,
+                                   g, words, ui,
+                                   None if visits is None else visits.data_ptr(),
+                                   stream)
+    if err != 0:
+        raise RuntimeError(f"render kernel launch failed: CUDA error {err}")
+    return out
+
+
+def new_visits(cams: torch.Tensor, height: int) -> torch.Tensor:
+    """Zeroed int32 [blocks, 2] buffer for render_packed(visits=...)."""
+    lib = load_library()
+    nblk = cams.shape[0] * cams.shape[1] * (height // TILE_H) * lib.mv_render_blocks_per_tile()
+    return torch.zeros((nblk, 2), dtype=torch.int32, device=cams.device)
+
+
+def cluster_row_mask(clbits: torch.Tensor, num_prims: int) -> torch.Tensor:
+    """Per-tile cluster bits int32 [B,A,T,Wc] -> per-tile row mask bool
+    [B,A,T,M] (row i is testable iff its cluster's bit is set)."""
+    g = num_prims // CLUSTER_K
+    gi = torch.arange(g, device=clbits.device)
+    words = clbits[..., gi >> 5]
+    bits = ((words >> (gi & 31).to(torch.int32)) & 1) != 0
+    return bits.repeat_interleave(CLUSTER_K, dim=-1)
+
+
+def render_packed_plain(cams, prims, height, width, clusters=None, sclist=None,
+                        clbits=None, scdist=None, cdist=None,
+                        ui_indicators=False) -> torch.Tensor:
+    """Plain PyTorch version of `render_packed` (same signature, any device).
+
+    Without cull tables it is the in-order renderer. With them it visits each
+    tile's surviving clusters in the tile-independent order "superclusters by
+    their nearest bound over all tiles", with the bit-walk's far-plane start
+    and row-index tie-break; the depth-bound skips of the kernel (which only
+    ever drop rows that cannot win) are not emulated."""
+    if clusters is None:
+        return R.render_table_packed(cams, prims, height, width, ui_indicators)
+    num_prims = prims.shape[1]
+    g = clusters.shape[1]
+    assert num_prims == g * CLUSTER_K and g % SUPER_K == 0, (num_prims, g)
+    row_mask = cluster_row_mask(clbits, num_prims)
+    # one global front-to-back-ish order: superclusters by min bound
+    key = torch.where(sclist < g // SUPER_K, scdist, torch.full_like(scdist, INF))
+    s = g // SUPER_K
+    best = torch.full((s,), INF, dtype=torch.float32, device=cams.device)
+    best = best.scatter_reduce(0, sclist.clamp(max=s - 1).reshape(-1).to(torch.long),
+                               key.reshape(-1), reduce="amin")
+    sc_order = torch.argsort(best, stable=True).tolist()
+    rows = [sc * SUPER_K * CLUSTER_K + j for sc in sc_order
+            for j in range(SUPER_K * CLUSTER_K)]
+    return R.render_table_packed(cams, prims, height, width, ui_indicators,
+                                 row_order=rows, row_mask=row_mask)
+
+
+# ---------------------------------------------------------------------------
+# Cluster tables.
+# ---------------------------------------------------------------------------
+
+def _dead_rows(prims: torch.Tensor, n: int) -> torch.Tensor:
+    dead = torch.zeros((prims.shape[0], n, prims.shape[2]), dtype=prims.dtype,
+                       device=prims.device)
+    dead[:, :, 0] = -1.0
+    return dead
+
+
+def build_clusters(prims: torch.Tensor, k: int = CLUSTER_K):
+    """Pad prim tables [B, M, 12] to a multiple of k rows and build the cluster
+    AABB tables [B, M'/k, 8] (lo xyz, hi xyz, tag, pad). Per-row bounds are
+    conservative per type; dead rows (type < 0) take an inverted AABB so they
+    never inflate a live cluster, and all-dead clusters collapse to a far
+    point box. Returns (prims_padded, clusters)."""
+    bsz, m, _ = prims.shape
+    pad = (-m) % k
+    if pad:
+        prims = torch.cat([prims, _dead_rows(prims, pad)], dim=1)
+    ptype = prims[:, :, 0].to(torch.int32)
+    a = prims[:, :, 1:4]
+    b = prims[:, :, 4:7]
+    c = prims[:, :, 8:11]
+
+    # Conservative half extents about center `a` for non-box rows.
+    quad_he = torch.stack([b[..., 0], b[..., 2], b[..., 1]], dim=-1)  # cyl/cone
+    # y-rotated box: exact world AABB of the rotated extents (b carries
+    # (yaw, cos yaw, sin yaw) for rotbox rows)
+    cy, sy = b[..., 1].abs(), b[..., 2].abs()
+    rot_he = torch.stack(
+        [c[..., 0] * cy + c[..., 2] * sy, c[..., 1], c[..., 0] * sy + c[..., 2] * cy],
+        dim=-1)
+    is_t = lambda t: (ptype == t)[..., None]
+    he = torch.where(is_t(PRIM_ELLIPSOID), b, quad_he)
+    he = torch.where(is_t(PRIM_EYEBOX), torch.full_like(he, _EYE_BOUND), he)
+    he = torch.where(is_t(PRIM_ROTBOX), rot_he, he)
+    # fused wall rows: the AABB must also cover the derived edging box
+    whx = c[..., 0] * float(np.float32(C.WALL_EDGE_LEN_SCALE))
+    whz = torch.clamp(c[..., 2], min=float(np.float32(C.WALL_EDGE_HZ)))
+    wall_he = torch.stack(
+        [whx * cy + whz * sy, c[..., 1], whx * sy + whz * cy], dim=-1)
+    he = torch.where(is_t(PRIM_ROTBOX_WALL), wall_he, he)
+
+    is_box = is_t(PRIM_AABB)
+    lo = torch.where(is_box, a, a - he)
+    hi = torch.where(is_box, b, a + he)
+    dead = (ptype < 0)[..., None]
+    lo = torch.where(dead, torch.full_like(lo, INF), lo)
+    hi = torch.where(dead, torch.full_like(hi, -INF), hi)
+
+    g = prims.shape[1] // k
+    clo = lo.reshape(bsz, g, k, 3).amin(dim=2)
+    chi = hi.reshape(bsz, g, k, 3).amax(dim=2)
+    empty = chi[..., :1] < clo[..., :1]
+    clo = torch.where(empty, torch.full_like(clo, INF), clo)
+    chi = torch.where(empty, torch.full_like(chi, INF), chi)
+    # Homogeneity tag (column 6): the shared row type if every LIVE row in the
+    # cluster has it; TAG_CONE_MIXED when live rows are CONE/CONE_FLIPPED
+    # mixed; else -1 (generic path). Dead rows are wildcards; all-dead -> -1.
+    grp = ptype.reshape(bsz, g, k)
+    live = grp >= 0
+    ref_t = grp.amax(dim=2)
+    any_live = live.any(dim=2)
+    same = ((grp == ref_t[..., None]) | ~live).all(dim=2) & any_live
+    coney = ((grp == PRIM_CONE) | (grp == PRIM_CONE_FLIPPED) | ~live).all(dim=2) & any_live
+    tag = torch.where(same, ref_t,
+                      torch.where(coney, torch.full_like(ref_t, TAG_CONE_MIXED),
+                                  torch.full_like(ref_t, -1))).to(torch.float32)
+    clusters = torch.cat(
+        [clo, chi, tag[..., None], torch.zeros_like(tag)[..., None]], dim=-1)
+    return prims, clusters
+
+
+def pad_prims_to_clusters(prims: torch.Tensor, clusters: torch.Tensor,
+                          k: int = CLUSTER_K) -> torch.Tensor:
+    """Pad prim tables with dead rows so num_prims == num_clusters * k (after
+    build_superclusters padded the cluster table to a multiple of SUPER_K)."""
+    want = clusters.shape[1] * k
+    m = prims.shape[1]
+    assert want >= m, (want, m)
+    if want == m:
+        return prims
+    return torch.cat([prims, _dead_rows(prims, want - m)], dim=1)
+
+
+def build_superclusters(clusters: torch.Tensor, k: int = SUPER_K):
+    """Pad cluster tables [B, G, 8] to a multiple of k and build the
+    supercluster AABB tables [B, G'/k, 8]. Dead clusters (point box at +INF)
+    do not inflate a live supercluster; all-dead superclusters collapse to the
+    same +INF point box. Returns (clusters_padded, sclusters)."""
+    bsz, g, w = clusters.shape
+    pad = (-g) % k
+    if pad:
+        dead = torch.full((bsz, pad, w), INF, dtype=clusters.dtype, device=clusters.device)
+        dead[:, :, 6:] = 0.0
+        clusters = torch.cat([clusters, dead], dim=1)
+    lo = clusters[..., 0:3]
+    hi = clusters[..., 3:6]
+    dead = lo[..., :1] > 1e29
+    lo = torch.where(dead, torch.full_like(lo, INF), lo)
+    hi = torch.where(dead, torch.full_like(hi, -INF), hi)
+    n = clusters.shape[1] // k
+    slo = lo.reshape(bsz, n, k, 3).amin(dim=2)
+    shi = hi.reshape(bsz, n, k, 3).amax(dim=2)
+    empty = shi[..., :1] < slo[..., :1]
+    slo = torch.where(empty, torch.full_like(slo, INF), slo)
+    shi = torch.where(empty, torch.full_like(shi, INF), shi)
+    sclusters = torch.cat(
+        [slo, shi, torch.zeros((bsz, n, 2), dtype=torch.float32, device=clusters.device)],
+        dim=-1)
+    return clusters, sclusters
+
+
+@functools.lru_cache(maxsize=8)
+def _tile_dir_bounds(height: int, width: int, tile_h: int = TILE_H,
+                     tile_w: int = TILE_W):
+    """Static camera-space ray-direction bounds per pixel tile: f32 numpy
+    [T, 3] lo and hi, widened by a safety margin so they bound the kernel's
+    f32/rsqrt directions for every pixel of the tile."""
+    rows = np.arange(height, dtype=np.float64)[:, None]
+    cols = np.arange(width, dtype=np.float64)[None, :]
+    tan_h = np.tan(np.deg2rad(C.CAMERA_FOV_DEG / 2))
+    tan_v = tan_h * height / width
+    u = ((cols + 0.5) / width * 2.0 - 1.0) * tan_h
+    v = (1.0 - (rows + 0.5) / height * 2.0) * tan_v
+    inv_len = 1.0 / np.sqrt(u * u + v * v + 1.0)
+    d0 = np.stack(np.broadcast_arrays(u * inv_len, v * inv_len,
+                                      -inv_len + 0 * u), axis=-1)
+    ty = -(-height // tile_h)
+    tx = width // tile_w
+    margin = 2e-3  # covers rsqrt/trig approximation vs numpy exact
+    lo = np.empty((ty * tx, 3), np.float32)
+    hi = np.empty((ty * tx, 3), np.float32)
+    for iy in range(ty):
+        for ix in range(tx):
+            blk = d0[iy * tile_h:(iy + 1) * tile_h,
+                     ix * tile_w:(ix + 1) * tile_w]
+            lo[iy * tx + ix] = blk.min(axis=(0, 1)) - margin
+            hi[iy * tx + ix] = blk.max(axis=(0, 1)) + margin
+    return lo, hi
+
+
+def _tile_survive(cams: torch.Tensor, clusters: torch.Tensor,
+                  height: int, width: int,
+                  tile_h: int = TILE_H, tile_w: int = TILE_W) -> torch.Tensor:
+    """Conservative per-tile frustum survival mask [B, A, T, G].
+
+    For each (env, agent, 8-row pixel tile) the cluster AABB is slab-tested
+    against INTERVAL ray directions (exact camera-space per-tile bounds
+    rotated by the agent's yaw/pitch with interval arithmetic, widened by a
+    float-safety margin), so any cluster that any ray of the tile could enter
+    in front of the camera and inside the far plane SURVIVES."""
+    d0lo_np, d0hi_np = _tile_dir_bounds(height, width, tile_h, tile_w)  # [T, 3]
+    d0lo = torch.from_numpy(d0lo_np).to(cams.device)[None, None]       # [1,1,T,3]
+    d0hi = torch.from_numpy(d0hi_np).to(cams.device)[None, None]
+
+    yaw = cams[:, :, 3:4]                              # [B, A, 1]
+    pitch = cams[:, :, 4:5]
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+
+    def mul(c, lo, hi):
+        a, b = c * lo, c * hi
+        return torch.minimum(a, b), torch.maximum(a, b)
+
+    def add(i1, i2):
+        return i1[0] + i2[0], i1[1] + i2[1]
+
+    ax = lambda i: (d0lo[..., i], d0hi[..., i])
+    # Same rotation as the kernel: y1 = cp*dy0 - sp*dz0; z1 = sp*dy0 + cp*dz0;
+    # dx = cy*dx0 + sy*z1; dy = y1; dz = -sy*dx0 + cy*z1.
+    y1 = add(mul(cp, *ax(1)), mul(-sp, *ax(2)))
+    z1 = add(mul(sp, *ax(1)), mul(cp, *ax(2)))
+    dxi = add(mul(cy, *ax(0)), mul(sy, *z1))
+    dyi = y1
+    dzi = add(mul(-sy, *ax(0)), mul(cy, *z1))
+
+    eye = cams[:, :, None, None, :3]                   # [B, A, 1, 1, 3]
+    lo = clusters[:, None, None, :, 0:3]               # [B, 1, 1, G, 3]
+    hi = clusters[:, None, None, :, 3:6]
+
+    eps = 1e-9
+    shape = (cams.shape[0], cams.shape[1], d0lo.shape[2], clusters.shape[1])
+    tmin = torch.full(shape, -INF, dtype=torch.float32, device=cams.device)
+    tmax = torch.full(shape, INF, dtype=torch.float32, device=cams.device)
+    for a_i, (dl, dh) in enumerate((dxi, dyi, dzi)):
+        dl = dl[..., None]                             # [B, A, T, 1]
+        dh = dh[..., None]
+        # If the tile's direction interval touches zero on this axis, some
+        # ray can be arbitrarily close to parallel: the axis constrains
+        # nothing (conservative pass).
+        definite = (dl > eps) | (dh < -eps)
+        il, ih = 1.0 / dh, 1.0 / dl                    # sign-consistent
+        p1 = lo[..., a_i] - eye[..., a_i]
+        p2 = hi[..., a_i] - eye[..., a_i]
+        c1, c2 = p1 * il, p1 * ih
+        c3, c4 = p2 * il, p2 * ih
+        ax_min = torch.minimum(torch.minimum(c1, c2), torch.minimum(c3, c4))
+        ax_max = torch.maximum(torch.maximum(c1, c2), torch.maximum(c3, c4))
+        tmin = torch.where(definite, torch.maximum(tmin, ax_min), tmin)
+        tmax = torch.where(definite, torch.minimum(tmax, ax_max), tmax)
+
+    slack = 0.02
+    return ((tmax >= tmin - slack) & (tmax > -slack)
+            & (tmin < C.CAMERA_FAR + slack))           # [B, A, T, G]
+
+
+def pack_bits(sv: torch.Tensor) -> torch.Tensor:
+    """bool [..., n] -> int32 [..., ceil(n/32)], bit j of word w = sv[32 w + j].
+    Bit 31 lands in the sign bit: the words are summed in int64 and folded
+    into int32 two's complement deliberately."""
+    n = sv.shape[-1]
+    w = -(-n // 32)
+    pad = w * 32 - n
+    if pad:
+        sv = torch.cat([sv, torch.zeros(sv.shape[:-1] + (pad,), dtype=torch.bool,
+                                        device=sv.device)], dim=-1)
+    sv = sv.reshape(sv.shape[:-1] + (w, 32)).to(torch.int64)
+    v = (sv << torch.arange(32, dtype=torch.int64, device=sv.device)).sum(dim=-1)
+    v = torch.where(v >= 2 ** 31, v - 2 ** 32, v)
+    return v.to(torch.int32)
+
+
+def cull_bits(cams: torch.Tensor, clusters: torch.Tensor, height: int, width: int,
+              super_k: int = SUPER_K, tile_h: int = TILE_H, tile_w: int = TILE_W,
+              cluster_mask: Optional[torch.Tensor] = None):
+    """Per-tile survivor lists + depth bounds for the bit-walk kernel.
+
+    cams [B, A, 8], clusters [B, G, 8] (G % super_k == 0) ->
+        (sclist int32 [B, A, T, S], clbits int32 [B, A, T, Wc],
+         scdist f32 [B, A, T, S], cdist f32 [B, A, G])
+    with S = G/super_k, Wc = ceil(G/32). Bit g of clbits is `_tile_survive`'s
+    conservative frustum test for cluster g. cdist[g] is the eye->cluster-AABB
+    Euclidean distance: a true lower bound on the ray parameter of ANY hit
+    against the cluster's rows (dirs are unit length). sclist is the tile's
+    surviving superclusters sorted FRONT-TO-BACK by their members' min cdist
+    (survivors only), sentinel-terminated (sentinel = S); scdist carries the
+    matching sorted bounds (+INF past the survivors)."""
+    survive = _tile_survive(cams, clusters, height, width, tile_h, tile_w)
+    if cluster_mask is not None:
+        # conservative per-(env, agent, cluster) visibility bits: a False bit
+        # proves no ray can hit the cluster's rows
+        survive = survive & cluster_mask[:, :, None, :]
+    g = survive.shape[-1]
+    assert g % super_k == 0, (g, super_k)
+
+    d = torch.clamp(torch.maximum(clusters[:, None, :, 0:3] - cams[:, :, None, :3],
+                                  cams[:, :, None, :3] - clusters[:, None, :, 3:6]),
+                    min=0.0)
+    cdist = torch.sqrt((d * d).sum(dim=-1))              # [B, A, G]
+
+    ns = g // super_k
+    # per-tile member bound: INF for non-surviving members, so a
+    # supercluster's key reflects only members the kernel could actually run
+    mdist = torch.where(survive, cdist[:, :, None, :].expand(survive.shape),
+                        torch.full((), INF, dtype=torch.float32, device=cams.device))
+    sc_key = mdist.reshape(mdist.shape[:-1] + (ns, super_k)).amin(dim=-1)
+    # stable: equal keys (the +INF tail included) keep ascending index order
+    skey, order = torch.sort(sc_key, dim=-1, stable=True)
+    sclist = torch.where(skey < INF, order.to(torch.int32),
+                         torch.full((), ns, dtype=torch.int32, device=cams.device))
+    return sclist.contiguous(), pack_bits(survive), skey.contiguous(), cdist.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Primitive-table construction (plain PyTorch, batched over envs).
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=8)
+def _packed_palette(device_str: str) -> torch.Tensor:
+    # packed-int palette (float-exact: values <= 0xFFFFFF < 2^24)
+    pal8 = np.round(np.asarray(C.PALETTE) * 255.0).astype(np.int64)
+    packed = (pal8[:, 0] << 16) | (pal8[:, 1] << 8) | pal8[:, 2]
+    return torch.tensor(packed, dtype=torch.float32, device=device_str)
+
+
+def build_prim_table(cfg: EnvConfig, box_lo: torch.Tensor, box_hi: torch.Tensor,
+                     box_color: torch.Tensor, props: PropState, agents: AgentState,
+                     include_agent_rows: bool = True) -> torch.Tensor:
+    """Unified primitive tables [B, M_total, 12].
+
+    include_agent_rows=False drops the agent body/eye rows: for first-person
+    rendering with a single agent they can never be visible (the camera sits
+    inside both and inside hits are culled)."""
+    dev = box_lo.device
+    f32 = torch.float32
+    palette = _packed_palette(str(dev))
+    bsz, m = box_color.shape
+
+    # Layout boxes.
+    t_box = (box_color > 0).to(f32) - 1.0   # PRIM_AABB (0) for live boxes, -1 dead
+    rows_box = torch.cat(
+        [t_box[..., None], box_lo, box_hi, palette[box_color.long()][..., None],
+         torch.zeros((bsz, m, 4), dtype=f32, device=dev)], dim=-1)
+
+    # Props.
+    p = props.type.shape[1]
+    pt = props.type.to(torch.int32)
+    visible = ((props.flags & PROP_FLAG_VISIBLE) != 0) & (pt != C.PROP_NONE)
+    sc = props.scale.abs()
+    flipped = props.scale[..., 1] < 0
+
+    ktype = torch.full_like(pt, -1)
+    for cond, k in (
+            (pt == C.PROP_ROTBOX_WALL, PRIM_ROTBOX_WALL),
+            (pt == C.PROP_ROTBOX, PRIM_ROTBOX),
+            ((pt == C.PROP_CONE) & flipped, PRIM_CONE_FLIPPED),
+            ((pt == C.PROP_CONE) & ~flipped, PRIM_CONE),
+            (pt == C.PROP_CYLINDER, PRIM_CYLINDER),
+            ((pt == C.PROP_SPHERE) | (pt == C.PROP_CAPSULE), PRIM_ELLIPSOID),
+            (pt == C.PROP_BOX, PRIM_AABB)):
+        ktype = torch.where(cond, torch.full_like(pt, k), ktype)
+    ktype = torch.where(visible, ktype, torch.full_like(pt, -1)).to(f32)
+
+    is_box = (pt == C.PROP_BOX)[..., None]
+    is_rot = ((pt == C.PROP_ROTBOX) | (pt == C.PROP_ROTBOX_WALL))[..., None]
+    a_vec = torch.where(is_box, props.pos - sc, props.pos)
+    ry = torch.where(pt == C.PROP_CAPSULE, 2.0 * sc[..., 1], sc[..., 1])
+    radii = torch.stack([sc[..., 0], ry, sc[..., 2]], dim=-1)
+    quad_b = torch.stack([sc[..., 0], sc[..., 2], 0.5 * sc[..., 1]], dim=-1)
+    # rotbox rows ship (yaw, cos yaw, sin yaw): the kernel reads the
+    # precomputed trig instead of evaluating it per row per pixel
+    rot_b = torch.stack([props.yaw, torch.cos(props.yaw), torch.sin(props.yaw)], dim=-1)
+    is_ell = ((pt == C.PROP_SPHERE) | (pt == C.PROP_CAPSULE))[..., None]
+    b_vec = torch.where(is_box, props.pos + sc,
+                        torch.where(is_rot, rot_b, torch.where(is_ell, radii, quad_b)))
+    c_vec = torch.where(is_rot, sc, torch.zeros_like(sc))
+    # col 11: the fused wall row's edging packed colour
+    is_wall = pt == C.PROP_ROTBOX_WALL
+    col11 = torch.where(is_wall, palette[props.color2.long()],
+                        torch.zeros((bsz, p), dtype=f32, device=dev))
+    rows_prop = torch.cat(
+        [ktype[..., None], a_vec, b_vec, palette[props.color.long()][..., None],
+         c_vec, col11[..., None]], dim=-1)
+
+    if not include_agent_rows:
+        return torch.cat([rows_box, rows_prop], dim=1).contiguous()
+
+    # Agent bodies + eye boxes.
+    num_agents = agents.pos.shape[1]
+    body_off = torch.tensor([0.0, C.AGENT_BODY_OFFSET_Y + 0.09, 0.0], dtype=f32, device=dev)
+    body_c = agents.pos + body_off
+    body_r = torch.tensor([0.35, 0.72, 0.35], dtype=f32, device=dev).expand(bsz, num_agents, 3)
+    agent_colors = np.asarray(C.AGENT_COLORS)
+    body_idx = torch.tensor(agent_colors[np.arange(num_agents) % len(agent_colors)],
+                            dtype=torch.long, device=dev)
+    body_rgb = palette[body_idx].expand(bsz, num_agents)
+    z4 = torch.zeros((bsz, num_agents, 4), dtype=f32, device=dev)
+    full = lambda v: torch.full((bsz, num_agents, 1), float(v), dtype=f32, device=dev)
+    rows_body = torch.cat(
+        [full(PRIM_ELLIPSOID), body_c, body_r, body_rgb[..., None], z4], dim=-1)
+
+    cam_off = torch.tensor(
+        [0.0, C.AGENT_BODY_OFFSET_Y + C.AGENT_CAMERA_OFFSET_Y, 0.0], dtype=f32, device=dev)
+    cam_pos = agents.pos + cam_off
+    eye_rgb = palette[C.COLOR_IDX["AGENT_EYES"]].expand(bsz, num_agents)
+    rows_eyes = torch.cat(
+        [full(PRIM_EYEBOX), cam_pos,
+         torch.stack([agents.yaw, agents.pitch, torch.zeros_like(agents.yaw)], dim=-1),
+         eye_rgb[..., None], z4], dim=-1)
+
+    return torch.cat([rows_box, rows_prop, rows_body, rows_eyes], dim=1).contiguous()
+
+
+def build_cams(cfg: EnvConfig, agents: AgentState, time_fraction: torch.Tensor,
+               last_reward: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Camera tables [B, A, 8]: eye xyz, yaw, pitch, time_fraction [B],
+    lastReward (column 6, drives the UI reward indicators), pad."""
+    bsz, num_agents = agents.yaw.shape
+    dev = agents.pos.device
+    eye = agents.pos + torch.tensor(
+        [0.0, C.AGENT_BODY_OFFSET_Y + C.AGENT_CAMERA_OFFSET_Y, 0.0],
+        dtype=torch.float32, device=dev)
+    tf = time_fraction.to(torch.float32).reshape(bsz, 1).expand(bsz, num_agents)
+    lr = (torch.zeros_like(agents.yaw) if last_reward is None
+          else last_reward.to(torch.float32).expand(bsz, num_agents))
+    return torch.cat(
+        [eye, agents.yaw[..., None], agents.pitch[..., None], tf[..., None],
+         lr[..., None], torch.zeros_like(agents.yaw)[..., None]], dim=-1).contiguous()
+
+
+def unpack_rgb(packed: torch.Tensor) -> torch.Tensor:
+    """int32 [..., H, W] packed -> uint8 [..., H, W, 3]."""
+    r = (packed >> 16) & 0xFF
+    g = (packed >> 8) & 0xFF
+    b = packed & 0xFF
+    return torch.stack([r, g, b], dim=-1).to(torch.uint8)

@@ -1,0 +1,100 @@
+"""Synthetic render inputs that hold every primitive type.
+
+Empty and TowerBuilding only ever produce AABB, ellipsoid and eye-box rows,
+while the render kernel implements all eight row types. This module builds,
+from a numpy seed, primitive tables with live rows of EVERY type 0-7 plus dead
+rows, and a set of cameras that includes one inside a box and one looking at
+the sky. Tests and the on-card smoke check feed the same tables to the kernel,
+its plain PyTorch version and the JAX package's reference renderer.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from megaverse_tpu_torch import constants as C
+
+ROW_W = 12
+
+
+def _packed_palette() -> np.ndarray:
+    pal8 = np.round(np.asarray(C.PALETTE) * 255.0).astype(np.int64)
+    return ((pal8[:, 0] << 16) | (pal8[:, 1] << 8) | pal8[:, 2]).astype(np.float32)
+
+
+def synthetic_prims(seed: int, num_envs: int = 4):
+    """float32 [num_envs, 83, 12]: a floor box plus 7 more AABBs (cluster 0),
+    one 8-row run per type 1..7 (so each 8-row cluster is homogeneous and gets
+    that type's tag), a run of alternating cone / flipped-cone rows (the "cone
+    mixed" tag), a run that mixes types (the generic path), and 3 trailing dead
+    rows; about one row in eight of every run is dead. Geometry differs per
+    env."""
+    rng = np.random.default_rng(seed)
+    pal = _packed_palette()
+    tables = []
+    for _ in range(num_envs):
+        rows = []
+
+        def add(ptype, a, b, c=(0, 0, 0), col11=0.0):
+            color = pal[rng.integers(1, len(pal))]
+            rows.append([ptype, *a, *b, color, *c, col11])
+
+        add(0, (-12.0, -1.0, -12.0), (12.0, 0.0, 12.0))   # floor
+        kinds = [0] * 7
+        for k in range(1, 8):
+            kinds += [k] * 8
+        kinds += [3, 4] * 4                                # diamond halves
+        kinds += [0, 1, 2, 5, 6, 7, 3, 1]                  # mixed cluster
+        for k in kinds:
+            ctr = np.array([rng.uniform(-8, 8), rng.uniform(0.3, 2.5), rng.uniform(-8, 8)])
+            if rng.random() < 0.12:
+                k_out = -1.0                               # dead row, junk payload
+            else:
+                k_out = float(k)
+            yaw = rng.uniform(-np.pi, np.pi)
+            if k == 0:
+                he = rng.uniform(0.2, 1.2, size=3)
+                add(k_out, ctr - he, ctr + he)
+            elif k == 1:
+                add(k_out, ctr, rng.uniform(0.3, 1.3, size=3))
+            elif k in (2, 3, 4):
+                add(k_out, ctr, (rng.uniform(0.3, 1.0), rng.uniform(0.3, 1.0),
+                                 rng.uniform(0.3, 1.0)))
+            elif k == 5:
+                add(k_out, ctr, (yaw, rng.uniform(-0.4, 0.4), 0.0))
+            elif k == 6:
+                add(k_out, ctr, (yaw, np.cos(yaw), np.sin(yaw)),
+                    c=rng.uniform(0.2, 1.2, size=3))
+            else:
+                hy = rng.uniform(0.4, 0.9)
+                add(k_out, (ctr[0], hy, ctr[2]), (yaw, np.cos(yaw), np.sin(yaw)),
+                    c=(rng.uniform(0.5, 1.5), hy, 0.15),
+                    col11=pal[rng.integers(1, len(pal))])
+        rows += [[-1.0] + [0.0] * 11] * 3                 # trailing dead rows
+        tables.append(np.asarray(rows, np.float32))
+    return np.stack(tables)
+
+
+def synthetic_cams(seed: int, prims: np.ndarray, num_agents: int = 4) -> np.ndarray:
+    """float32 [B, num_agents, 8] cameras (eye xyz, yaw, pitch, time fraction,
+    lastReward, pad) for `prims` [B, M, 12]. Agent 0 sits INSIDE the first
+    live AABB of the type-0 run, agent 1 looks straight at the sky from high
+    up, the rest look around from random places; lastReward takes positive,
+    negative and zero values so both reward indicators appear."""
+    rng = np.random.default_rng(seed + 1)
+    bsz = prims.shape[0]
+    cams = np.zeros((bsz, num_agents, 8), np.float32)
+    for b in range(bsz):
+        for a in range(num_agents):
+            eye = [rng.uniform(-9, 9), rng.uniform(0.6, 3.0), rng.uniform(-9, 9)]
+            yaw, pitch = rng.uniform(-np.pi, np.pi), rng.uniform(-0.5, 0.3)
+            if a == 0:
+                live = [i for i in range(1, prims.shape[1]) if prims[b, i, 0] == 0.0]
+                if live:
+                    row = prims[b, live[0]]
+                    eye = list((row[1:4] + row[4:7]) * 0.5)
+            elif a == 1:
+                eye[1], pitch = 9.0, 1.35
+            reward = (0.0, 0.7, -1.3, 0.2)[(a + b) % 4]
+            cams[b, a] = [*eye, yaw, pitch, rng.uniform(0.0, 1.0), reward, 0.0]
+    return cams

@@ -1,0 +1,492 @@
+"""Vectorized environment: batched step + device-side auto-reset buffer
+(counterpart of megaverse_tpu/vector_env.py).
+
+Replacement for the reference VectorEnv thread pool
+(env/src/vector_env.cpp:6-127): instead of N CPU threads stepping N envs behind
+a spin barrier, the whole batch steps in lockstep as batched tensor code, and
+observations for all env x agent cameras come out of one kernel launch (the
+analogue of the single v4r cmdStream.render, v4r_env_renderer.cpp:338-355).
+
+Auto-reset: the step consumes a per-env "next episode layout" buffer by masked
+select when an env finishes (replacing the serial reset of done envs,
+vector_env.cpp:89-108). The host refills consumed slots from numpy procedural
+generation between steps; each env's layout stream is keyed by its own seed
+chain (mirroring megaverse.cpp:60-69 master->per-env seeding), so results are
+deterministic regardless of refill timing.
+
+The step loop is eager PyTorch on the current CUDA stream; it makes no
+device-to-host synchronisation inside a `step_many` chunk.
+"""
+
+from __future__ import annotations
+
+import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from megaverse_tpu_torch import constants as C
+from megaverse_tpu_torch.env import env_step, render_batch
+from megaverse_tpu_torch.ops.raycast_cuda import unpack_rgb
+from megaverse_tpu_torch.scenarios import make_scenario
+from megaverse_tpu_torch.scenarios.base import Scenario
+from megaverse_tpu_torch.types import (
+    EnvState,
+    SceneData,
+    multidiscrete_to_bitmask,
+    scene_to_device,
+    stack_scenes,
+    state_from_scene,
+    tree_scatter,
+)
+from megaverse_tpu_torch.utils.refrng import Rng, episode_reseed, fan_out_env_seeds
+
+# How many steps may elapse between done-flag inspections on the host. Must be
+# much smaller than the shortest episode (>= 6 s = 90 steps) so a slot is never
+# consumed twice before refill.
+DONE_POLL_INTERVAL = 16
+
+
+def refill_slot_rung(n: int, num_envs: int) -> int:
+    """Padded slot count for a refill of `n` envs: 1.5x rungs
+    (64/96/128/192/...), so refill uploads and scatters come in a few fixed
+    shapes; the padded rows are real upload bytes, hence not pure doubling."""
+    slots = 64
+    for rung in (64, 96, 128, 192, 256, 384, 512, 768, 1024):
+        slots = rung
+        if rung >= n:
+            break
+    while slots < n:  # num_envs can exceed the ladder tail
+        slots *= 2
+    return min(slots, num_envs)
+
+
+class VectorEnv:
+    """Batched auto-resetting environment.
+
+    `device=None` means "cuda" and raises if no GPU is present; pass
+    device="cpu" to run on the CPU (the renderer then takes the kernel's plain
+    PyTorch version)."""
+
+    def __init__(
+        self,
+        scenario_name: str,
+        num_envs: int,
+        num_agents_per_env: int = 1,
+        params: Optional[Dict[str, float]] = None,
+        seed: int = 42,
+        render: bool = True,
+        obs_format: str = "auto",
+        device=None,
+        rng_mode: str = "numpy",
+    ):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "VectorEnv runs on a CUDA device by default and none is "
+                    "available; pass device='cpu' to run on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.scenario: Scenario = make_scenario(
+            scenario_name, num_agents=num_agents_per_env, params=params
+        )
+        self.num_envs = num_envs
+        self.num_agents_per_env = num_agents_per_env
+        self.render_obs = render
+        # "packed" int32 [B,A,H,W] is the on-device obs format: one word per
+        # pixel, written once by the kernel.
+        if obs_format == "auto":
+            obs_format = "packed" if self.device.type == "cuda" else "rgb"
+        self.obs_format = obs_format
+
+        # rng_mode="reference": layouts draw from bit-exact libstdc++ mt19937
+        # streams through the reference's master->env->episode seed chain
+        # (utils/refrng.py; megaverse.cpp:60-69, env.cpp:61-63), so generated
+        # geometry matches the C++ engine's under the same seed. Only
+        # scenarios with supports_ref_stream implement it.
+        if rng_mode not in ("numpy", "reference"):
+            raise ValueError(f"unknown rng_mode {rng_mode!r}")
+        if rng_mode == "reference" and not self.scenario.supports_ref_stream:
+            raise ValueError(
+                f"{self.scenario.name}: reference-stream generation not "
+                "implemented (supports_ref_stream=False)")
+        self.rng_mode = rng_mode
+        self._gens: List = []
+        self._master_seed = seed
+        self._prefetch_pool = None
+        self._prefetch_q = None
+        self.seed(seed)
+
+        self.shaping = torch.from_numpy(
+            np.tile(self.scenario.shaping_array()[None], (num_envs, 1, 1))
+        ).to(self.device)
+
+        # Render-table bucket: (max live boxes, max live props) across the
+        # batch, tracked as a high-water mark over every layout generated so
+        # far. Scenario capacities are worst-case, so rendering only the live
+        # prefix keeps the primitive and cull tables short.
+        self._bucket: Optional[tuple] = None
+        # MEGAVERSE_NO_CLUSTER_CULL=1 renders with the unculled in-order
+        # kernel form instead of the bit-walk (same image; for comparison).
+        self._cull = not os.environ.get("MEGAVERSE_NO_CLUSTER_CULL")
+        self._hw_boxes = 0
+        segs = self.scenario.cfg.prop_segments
+        self._hw_props = [0] * len(segs) if segs else 0
+
+        self.state: Optional[EnvState] = None
+        self.next_scenes: Optional[SceneData] = None
+        self._steps_since_poll = 0
+        # Running OR of done flags since the last refill (device tensor).
+        self._pending_dones: Optional[torch.Tensor] = None
+        self._deferred_refill = None
+        # counters a caller can read: auto-resets noticed by the host and
+        # layouts uploaded into the buffer
+        self.num_refills = 0
+        self.num_refilled_envs = 0
+
+    # ---------------------------------------------------------------- renderer
+    def _render(self, state: EnvState) -> torch.Tensor:
+        return render_batch(self.scenario, state, fmt=self.obs_format,
+                            bucket=self._bucket, cull=self._cull)
+
+    def _note_layout_counts(self, scenes) -> None:
+        segments = self.scenario.cfg.prop_segments
+        for sc in scenes:
+            self._hw_boxes = max(
+                self._hw_boxes, int((np.asarray(sc.box_color) > 0).sum()))
+            types = np.asarray(sc.props.type)
+            if segments:
+                for i, (ptype, start, cap) in enumerate(segments):
+                    n = int((types[start:start + cap] != C.PROP_NONE).sum())
+                    self._hw_props[i] = max(self._hw_props[i], n)
+            else:
+                self._hw_props = max(
+                    self._hw_props, int((types != C.PROP_NONE).sum()))
+
+    def _update_bucket(self) -> None:
+        # render_batch clips the bucket to the table capacities. Bucket sizes
+        # live on a coarse GEOMETRIC ladder with generous headroom: reset
+        # samples 2*B layouts, so the observed high-water estimates the
+        # maximum well and later creep almost never crosses the next rung,
+        # which keeps the table shapes (and everything sized by them) stable.
+        # Padded rows cost next to nothing in the bit-walk kernel (dead
+        # clusters never pass the cull bits).
+        def quantize(n):
+            n = int(n)
+            if n <= 0:
+                return 0
+            if n <= 8:
+                return n + (n & 1)
+            v = 8
+            while v < n:
+                v = (v * 3 + 1) // 2  # ratio 1.5 ladder: 8,12,18,27,...
+            return v
+
+        mb = max(1, quantize(self._hw_boxes * 1.25))
+        if isinstance(self._hw_props, list):
+            pb = tuple(quantize(n * 1.25) for n in self._hw_props)
+            grew = (self._bucket is None or mb > self._bucket[0]
+                    or any(a > b for a, b in zip(pb, self._bucket[1])))
+        else:
+            pb = quantize(self._hw_props * 1.25)
+            grew = (self._bucket is None or mb > self._bucket[0]
+                    or pb > self._bucket[1])
+        if grew:
+            self._bucket = (mb, pb)
+
+    # ------------------------------------------------------------------ seeds
+    def seed(self, seed: int) -> None:
+        """Master seed fans out per-env generation streams (megaverse.cpp:60-69)."""
+        self._master_seed = seed
+        # Drain the prefetch worker BEFORE swapping generators: a pending task
+        # resolves self._gens[i] at run time and must not touch the new streams.
+        self._reset_prefetch()
+        if self.rng_mode == "reference":
+            self._gens = [Rng(s) for s in fan_out_env_seeds(seed, self.num_envs)]
+        else:
+            ss = np.random.SeedSequence(seed)
+            self._gens = [np.random.Generator(np.random.PCG64(s))
+                          for s in ss.spawn(self.num_envs)]
+
+    # --------------------------------------------------------------- prefetch
+    # Layout generation is host-side numpy; at high throughput the synchronous
+    # refill serializes it between device chunks. A small worker pool
+    # pre-generates each env's NEXT layouts while the device runs. Determinism
+    # does not depend on scheduling: each env owns its generator stream, and at
+    # most one task per env is ever in flight (_pop_scene resolves the queued
+    # future before submitting the next), so every env's layouts are produced
+    # in consumption order, bit-identical to synchronous generation.
+    def _reset_prefetch(self) -> None:
+        if self._prefetch_pool is not None:
+            self._prefetch_pool.shutdown(wait=True, cancel_futures=True)
+        self._prefetch_pool = None
+        workers = int(os.environ.get(
+            "MEGAVERSE_GEN_THREADS", min(4, os.cpu_count() or 1)))
+        self._prefetch_pool = ThreadPoolExecutor(
+            workers, thread_name_prefix="megaverse-gen")
+        self._prefetch_q = [deque() for _ in range(self.num_envs)]
+
+    def _gen_scene(self, i: int):
+        if self.rng_mode == "reference":
+            # per-episode reseed (env.cpp:61-63) then reference-order draws
+            episode_reseed(self._gens[i])
+            return self.scenario.generate_checked(self._gens[i], ref_stream=True)
+        return self.scenario.generate_checked(self._gens[i])
+
+    def _pop_scene(self, i: int):
+        """Next layout for env i: prefetched if available, inline otherwise
+        (also after `close`). Tops the env's queue back up afterwards."""
+        if self._prefetch_pool is None:
+            return self._gen_scene(i)
+        q = self._prefetch_q[i]
+        fut = q.popleft() if q else self._prefetch_pool.submit(self._gen_scene, i)
+        scene = fut.result()
+        q.append(self._prefetch_pool.submit(self._gen_scene, i))
+        return scene
+
+    def close(self) -> None:
+        if self._prefetch_pool is not None:
+            self._prefetch_pool.shutdown(wait=True, cancel_futures=True)
+            self._prefetch_pool = None
+
+    # ------------------------------------------------------------------ reset
+    def _generate_batch(self, env_indices, pad_to: int = 0) -> SceneData:
+        """Generate + stack layouts for env_indices and ship them to the
+        device, one buffer per leaf; `pad_to` repeats the first layout
+        host-side up to a fixed row count so refills come in few shapes."""
+        scenes = [self._pop_scene(i) for i in env_indices]
+        self._note_layout_counts(scenes)
+        return scene_to_device(stack_scenes(scenes, pad_to=pad_to), self.device,
+                               non_blocking=True)
+
+    def reset(self) -> torch.Tensor:
+        all_idx = range(self.num_envs)
+        first = self._generate_batch(all_idx)
+        self.next_scenes = self._generate_batch(all_idx)
+        rng = torch.arange(self.num_envs, dtype=torch.int64, device=self.device) \
+            + (int(self._master_seed) << 20)
+        self.state = state_from_scene(first, self.num_agents_per_env, rng)
+        self._steps_since_poll = 0
+        self._pending_dones = None
+        self._deferred_refill = None
+        self._update_bucket()
+        return self._render(self.state)
+
+    # ------------------------------------------------------------------- step
+    def _to_actions(self, actions) -> torch.Tensor:
+        actions = torch.as_tensor(actions)
+        if actions.dim() == 3:
+            actions = multidiscrete_to_bitmask(actions)
+        return actions.to(device=self.device, dtype=torch.int32)
+
+    def _advance(self, actions: torch.Tensor):
+        """One sim tick + render on the current stream; no host sync."""
+        res = env_step(self.scenario, self.state, self.next_scenes, actions,
+                       self.shaping)
+        self.state = res.state
+        obs = self._render(res.state) if self.render_obs else None
+        self._accumulate_dones(res.done)
+        return obs, res
+
+    def _empty_obs(self) -> torch.Tensor:
+        cfg = self.scenario.cfg
+        shape = (self.num_envs, self.num_agents_per_env, cfg.obs_height, cfg.obs_width)
+        if self.obs_format == "packed":
+            return torch.zeros(shape, dtype=torch.int32, device=self.device)
+        return torch.zeros(shape + (3,), dtype=torch.uint8, device=self.device)
+
+    def step(self, actions):
+        """actions: int bitmask [B, A] or multidiscrete [B, A, 6].
+
+        Returns (obs, rewards [B,A] f32, dones [B] bool, true_objective
+        [B,A] f32), all device tensors; obs is packed int32 [B,A,H,W] or
+        uint8 [B,A,H,W,3] by `obs_format`."""
+        if self.state is None:
+            self.reset()
+        obs, res = self._advance(self._to_actions(actions))
+        if obs is None:
+            obs = self._empty_obs()
+        self._steps_since_poll += 1
+        if self._steps_since_poll >= DONE_POLL_INTERVAL:
+            self._refill_consumed_slots()
+        return obs, res.reward, res.done, res.true_objective
+
+    def step_many(self, action_pool, n_steps: int):
+        """Run `n_steps` env steps back-to-back (throughput path).
+
+        `action_pool` is an array [K, B, A] of int32 bitmasks; step i uses
+        pool[i % K]. Returns (last_obs, dones: list of n [B] tensors,
+        checksums) where checksums is a one-element list whose entry depends
+        on the last frame (synchronise on it to wait for the chunk). The chunk
+        is a Python loop of eager steps queued on the current stream with no
+        device-to-host synchronisation inside it.
+
+        n_steps must stay below the shortest episode length in steps so a
+        layout-buffer slot cannot be consumed twice within one chunk (asserted
+        against the scenario's base episode_length_sec; per-episode
+        extensions like TowerBuilding's +4 s/box only lengthen episodes)."""
+        if self.state is None:
+            self.reset()
+        min_ep_steps = int(
+            float(self.scenario.cfg.params.get(C.P_EPISODE_LENGTH_SEC, 60.0))
+            / self.scenario.cfg.dt)
+        if n_steps >= min_ep_steps:
+            raise ValueError(
+                f"step_many(n_steps={n_steps}) >= shortest episode "
+                f"({min_ep_steps} steps): a layout-buffer slot could be "
+                f"consumed twice before refill; use smaller chunks")
+
+        # Refill overlap: instead of refilling consumed slots synchronously
+        # BEFORE the chunk (which serializes host generation + upload +
+        # scatter between device chunks), snapshot the pending dones, queue
+        # the whole chunk first, then refill from the PREVIOUS chunk's
+        # snapshot while this chunk executes. Correctness window: a slot
+        # consumed in chunk N is refilled before chunk N+2 executes (the
+        # scatter is queued during N+1, ahead of N+2's steps on the same
+        # stream), so the shortest episode must span TWO chunks. Scenarios
+        # with shorter episodes keep the synchronous pre-chunk refill.
+        overlap = 2 * n_steps < min_ep_steps
+        if not overlap:
+            self._refill_consumed_slots()
+
+        pool = torch.as_tensor(np.asarray(action_pool) if not torch.is_tensor(action_pool)
+                               else action_pool).to(device=self.device, dtype=torch.int32)
+        dones = []
+        obs = None
+        for i in range(n_steps):
+            obs, res = self._advance(pool[i % pool.shape[0]])
+            dones.append(res.done)
+        if obs is None:
+            obs = self._empty_obs()
+        self._steps_since_poll = 0  # refilled at next step_many/flush
+        # One checksum per chunk; it depends on the final obs, whose chain
+        # covers every step in the chunk.
+        csum = obs.sum(dtype=torch.int64)
+        if overlap:
+            self._overlap_refill_tick()
+        return obs, dones, [csum]
+
+    def flush(self) -> None:
+        """Force buffer refill bookkeeping (call before relying on layouts)."""
+        self._refill_consumed_slots()
+
+    def render(self) -> torch.Tensor:
+        """Re-render the current state (all env x agent views)."""
+        if self.state is None:
+            return self.reset()
+        return self._render(self.state)
+
+    def _accumulate_dones(self, done: torch.Tensor) -> None:
+        self._pending_dones = (
+            done if self._pending_dones is None else self._pending_dones | done)
+
+    def _refill_consumed_slots(self) -> None:
+        self._steps_since_poll = 0
+        self._apply_refill_bits(self._take_refill_stash())
+        mask = self._pending_dones
+        self._pending_dones = None
+        if mask is None:
+            return
+        self._apply_refill_bits(self._fetch_bits(self._pack_mask(mask)))
+
+    # -- refill overlap machinery --------------------------------------------
+    # The packed done-bits of chunk N are computed as a device op queued right
+    # AFTER chunk N's steps and copied to a pinned host buffer asynchronously;
+    # they are resolved (host layout generation + upload + scatter) at the end
+    # of chunk N+1's queueing, so the device rolls from chunk N straight into
+    # N+1 while the host prepares the refill, and the scatter lands in the
+    # stream ahead of chunk N+2, the first chunk that could consume a slot
+    # freed in chunk N (the 2-chunk episode window asserted in step_many).
+    def _pack_mask(self, mask: torch.Tensor) -> torch.Tensor:
+        """bool [B] -> uint8 [ceil(B/8)], little bit order."""
+        pad = (-mask.shape[0]) % 8
+        if pad:
+            mask = torch.cat([mask, torch.zeros((pad,), dtype=torch.bool,
+                                                device=mask.device)])
+        weights = (1 << torch.arange(8, dtype=torch.int32, device=mask.device))
+        return (mask.reshape(-1, 8).to(torch.int32) * weights).sum(dim=-1).to(torch.uint8)
+
+    def _fetch_bits(self, packed: torch.Tensor):
+        """Start the device-to-host copy of packed done bits. Returns
+        (host tensor, event or None); the event marks the copy's completion."""
+        if packed.device.type != "cuda":
+            return packed, None
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return host, event
+
+    def _overlap_refill_tick(self) -> None:
+        """End-of-chunk overlap step: stash THIS chunk's done-bits (pack queued
+        right behind its steps + asynchronous host copy), then resolve the
+        PREVIOUS chunk's stash into generation + upload + scatter while this
+        chunk runs on the device."""
+        deferred = self._take_refill_stash()
+        mask = self._pending_dones
+        self._pending_dones = None
+        if mask is not None:
+            self._deferred_refill = self._fetch_bits(self._pack_mask(mask))
+        self._apply_refill_bits(deferred)
+        self._steps_since_poll = 0
+
+    def _take_refill_stash(self):
+        stash = self._deferred_refill
+        self._deferred_refill = None
+        return stash
+
+    def _apply_refill_bits(self, stash) -> None:
+        if stash is None:
+            return
+        host, event = stash
+        if event is not None:
+            event.synchronize()   # waits for that copy only, not for the stream
+        dones = np.unpackbits(host.numpy(), bitorder="little")[: self.num_envs]
+        idx = np.nonzero(dones)[0]
+        if idx.size == 0:
+            return
+        # Fixed slot ladder for the refill upload + scatter, padded HOST-side;
+        # sentinel coords == num_envs are dropped by the scatter.
+        n = idx.size
+        slots = refill_slot_rung(n, self.num_envs)
+        new_scenes = self._generate_batch(idx.tolist(), pad_to=slots)
+        idx_dev = torch.from_numpy(np.concatenate(
+            [idx.astype(np.int64),
+             np.full((slots - n,), self.num_envs, np.int64)])).to(self.device)
+        # out of place (tree_scatter builds new leaves): steps already queued
+        # keep reading the old buffer, and `state` never aliases either one
+        self.next_scenes = tree_scatter(self.next_scenes, idx_dev, new_scenes)
+        self.num_refills += 1
+        self.num_refilled_envs += int(n)
+        self._update_bucket()
+
+    # -------------------------------------------------------------- shaping
+    def get_reward_shaping(self, env_idx: int, agent_idx: int) -> Dict[str, float]:
+        row = self.shaping[env_idx, agent_idx].cpu().numpy()
+        return dict(zip(self.scenario.all_shaping_keys, row.tolist()))
+
+    def set_reward_shaping(self, env_idx: int, agent_idx: int, rs: Dict[str, float]) -> None:
+        keys = self.scenario.all_shaping_keys
+        row = self.shaping[env_idx, agent_idx].cpu().numpy().copy()
+        for k, v in rs.items():
+            if k in keys:
+                row[keys.index(k)] = v
+        shaping = self.shaping.clone()
+        shaping[env_idx, agent_idx] = torch.from_numpy(row).to(self.device)
+        self.shaping = shaping
+
+    @property
+    def action_space_sizes(self):
+        return list(C.ACTION_SPACE_SIZES)
+
+    @staticmethod
+    def unpack_obs(obs: torch.Tensor) -> torch.Tensor:
+        """packed int32 [..., H, W] -> uint8 [..., H, W, 3]."""
+        if obs.dtype == torch.uint8:
+            return obs
+        return unpack_rgb(obs)
