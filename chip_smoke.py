@@ -1,28 +1,41 @@
 """On-card smoke check of the PyTorch/CUDA port (megaverse_tpu_torch).
 
 Run `python3 chip_smoke.py` on a machine with one NVIDIA GPU (built for
-sm_90a, i.e. an H100). It builds the render kernels from
+sm_90a, i.e. an H100). It builds the render kernel from
 megaverse_tpu_torch/csrc with nvcc, then
 
   1. prints the machine (card, power limit, torch/CUDA/nvcc versions, build
      seconds);
-  2. holds each kernel form against its plain PyTorch version ON THE CARD:
-     a synthetic table with live rows of every primitive type, and the states
-     of TowerBuilding (64 envs x 4 agents) and Empty (64 x 2) after 20 random
-     steps. B1 (unculled) vs plain: at most 1 per colour channel on fewer than
-     1e-4 of the pixels (the elementary functions of the two differ in the
-     last place at most). B2 (bit-walk) vs B1: exactly equal;
-  3. drives the main path at full width through `VectorEnv`: TowerBuilding
-     1024 x 1 and Empty 4096 x 1 for reset + 3 chunks of 64 `step_many` steps
-     with a random action pool (numpy seed 0) and a flush; one TowerBuilding
-     run of 256 envs x 4 agents with episodeLengthSec=4 so that auto-resets
-     and layout refills happen inside the run; one chunk of TowerBuilding 1024 x 1
-     with MEGAVERSE_NO_CLUSTER_CULL=1 (the unculled form B1). Launch counts
-     are zeroed before and read after each run. The kernels are then held
+  2. holds every form of the render kernel against form B1 and against its
+     plain PyTorch version ON THE CARD: a synthetic table with live rows of
+     every primitive type (reward indicators off and on), and the states of
+     Collect (64 envs x 2 agents), TowerBuilding (64 x 4) and Empty (64 x 2, a
+     table shorter than 8 clusters) after 20 random steps. B1 (unculled) vs
+     plain: at most 1 per colour channel on fewer than 1e-4 of the pixels (the
+     elementary functions of the two differ in the last place at most). B2
+     (bit-walk), B3 (clustered), B4 (per-agent lists without and with distance
+     bounds, per-tile lists, a shuffled permutation), B5 (superclusters, with
+     a prim table that is not padded to whole superclusters) and B6 (the
+     merged launch of each of B1-B5) vs B1: exactly equal; each vs its own
+     plain version: the tolerance above;
+  3. drives the main path at full width through `VectorEnv`: reset +
+     `step_many` chunks of 64 steps with a random action pool (numpy seed 0) +
+     flush, for TowerBuilding 1024 x 1, Empty 4096 x 1, Collect 1024 x 1 and
+     ObstaclesHard 1024 x 1 under the default mode (B2); one chunk of 16 steps
+     each of TowerBuilding with MEGAVERSE_NO_CLUSTER_CULL=1 (B1) and of Collect with
+     MEGAVERSE_RENDER_MODE=super (B5), plus MEGAVERSE_NO_SUPERCLUSTERS=1 (B4,
+     per-tile lists), plus MEGAVERSE_NO_CLUSTER_SORT=1 (B3), and with
+     MEGAVERSE_MERGE_TILES=1 (B6 over B2); and three runs whose episodes are
+     short enough for auto-resets and layout refills to happen inside them
+     (TowerBuilding 256 envs x 4 agents and Collect 256 x 2 with
+     episodeLengthSec=4, Test 256 x 1). Launch counts are
+     zeroed before and read after each run and must equal resets + steps for
+     the form the mode selects, 0 for the others. The kernels are then held
      against the plain version once more on the full-width states these runs
      end on (comparison launches are not counted);
-  4. times both forms and the plain version at the main-path shape and prints
-     the `kernels` line (times, launches, largest error, roofline bound).
+  4. times every form and its plain version at the Collect 1024 x 1 shape (B1
+     and B2 also at the TowerBuilding 1024 x 1 shape) and prints the `kernels`
+     line (times, launches, largest error, roofline bound).
 
 Any failed check raises and the script exits non-zero. The last line of the
 output is {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -54,8 +67,21 @@ OPS_ROW_OTHER = 100
 OPS_PIXEL_FIXED = 150
 
 SOURCE = "megaverse_tpu_torch/csrc/render.cu"
-REPLACES = "megaverse_tpu/ops/raycast_pallas.py:109"
+# the reference kernel body and, per form, the lines of its traversal
+REPLACES = {
+    "render_b1": "megaverse_tpu/ops/raycast_pallas.py:931",
+    "render_b2": "megaverse_tpu/ops/raycast_pallas.py:693",
+    "render_b3": "megaverse_tpu/ops/raycast_pallas.py:610",
+    "render_b4": "megaverse_tpu/ops/raycast_pallas.py:885",
+    "render_b5": "megaverse_tpu/ops/raycast_pallas.py:820",
+    "render_b6": "megaverse_tpu/ops/raycast_pallas.py:1008",
+}
 TOL_FRACTION = 1e-4
+
+# case of the comparison -> the launch counter (kernel form) it exercises
+CASE_FORM = {"b2": "render_b2", "b3": "render_b3", "b4_agent": "render_b4",
+             "b4_agent_dist": "render_b4", "b4_tile": "render_b4",
+             "b4_shuffled": "render_b4", "b5": "render_b5"}
 
 
 def emit(obj) -> None:
@@ -80,9 +106,11 @@ def channel_diff(a: torch.Tensor, b: torch.Tensor):
     return worst, frac
 
 
-def time_cuda(fn, reps: int) -> float:
-    """Mean milliseconds of fn() over `reps` back-to-back calls (CUDA events)."""
-    fn()
+def time_cuda(fn, reps: int, warm: bool = True) -> float:
+    """Mean milliseconds of fn() over `reps` back-to-back calls (CUDA events),
+    after one untimed call unless `warm` is False."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -93,15 +121,38 @@ def time_cuda(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+class ModeEnv:
+    """Set the render-mode environment variables for the duration of a block."""
+
+    def __init__(self, **env):
+        self.env = env
+        self.previous = {}
+
+    def __enter__(self):
+        self.previous = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, old in self.previous.items():
+            if old is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = old
+
+
 class Smoke:
     def __init__(self):
         from megaverse_tpu_torch.ops import raycast_cuda as RC
+        from megaverse_tpu_torch.utils.synthetic import form_tables
         self.RC = RC
+        self.form_tables = form_tables
         self.dev = torch.device("cuda", 0)
         self.smi = nvidia_smi_line()
-        self.max_err = {"render_b1": 0, "render_b2": 0}
-        self.launches = {"render_b1": 0, "render_b2": 0}
+        self.max_err = {name: 0 for name in RC.FORMS}
+        self.launches = {name: 0 for name in RC.FORMS}
         self.obs_per_s = {}
+        self.saw_unpadded_b5 = False
+        self.saw_short_table = False
 
     # ------------------------------------------------------------- phase 1
     def machine(self) -> None:
@@ -116,47 +167,61 @@ class Smoke:
               "build_seconds": RC.BUILD_INFO["seconds"],
               "load_seconds": time.perf_counter() - t0,
               "ptxas": [ln for ln in (RC.BUILD_INFO["log"] or "").splitlines()
-                        if "registers" in ln or "spill" in ln][:8]})
+                        if "registers" in ln or "spill" in ln][:24]})
 
     # ------------------------------------------------------------- phase 2
-    def cull_tables(self, cams, prims, height):
+    def compare(self, label, cams, prims, height, ui, plain_cases=None) -> None:
+        """On one input set: B1 vs plain within tolerance; every other form,
+        tiled and merged, exactly equal to B1; the cases named in
+        `plain_cases` (default: all) also against their own plain version."""
         RC = self.RC
-        prims, clusters = RC.build_clusters(prims)
-        clusters, _ = RC.build_superclusters(clusters)
-        prims = RC.pad_prims_to_clusters(prims, clusters).contiguous()
-        sclist, clbits, scdist, cdist = RC.cull_bits(cams, clusters, height, 128)
-        return dict(prims=prims, clusters=clusters.contiguous(), sclist=sclist,
-                    clbits=clbits, scdist=scdist, cdist=cdist)
-
-    def compare(self, label, cams, prims, height, ui) -> None:
-        """B1 vs plain within tolerance, B2 vs B1 exact, on one input set."""
-        RC = self.RC
+        render = lambda **kw: RC.render_packed(cams, height=height, width=128,
+                                               ui_indicators=ui, **kw)
         plain = RC.render_packed_plain(cams, prims, height, 128, ui_indicators=ui)
-        b1 = RC.render_packed(cams, prims, height, 128, ui_indicators=ui)
-        tabs = self.cull_tables(cams, prims, height)
-        b2 = RC.render_packed(cams, height=height, width=128, ui_indicators=ui, **tabs)
+        b1 = render(prims=prims)
         torch.cuda.synchronize()
         worst, frac = channel_diff(b1, plain)
-        exact = bool((b1 == b2).all().item())
         self.max_err["render_b1"] = max(self.max_err["render_b1"], worst)
-        w2, _ = channel_diff(b2, plain)
-        self.max_err["render_b2"] = max(self.max_err["render_b2"], w2)
-        emit({"phase": "kernel_vs_plain", "case": label, "shape": list(b1.shape),
-              "rows": int(prims.shape[1]), "b1_max_channel_diff": worst,
-              "b1_fraction_differing": frac, "b2_equals_b1": exact,
-              "distinct_colours": int(torch.unique(b1).numel())})
         if worst > 1 or frac >= TOL_FRACTION:
             raise AssertionError(f"{label}: B1 disagrees with the plain version "
                                  f"(max {worst}, fraction {frac})")
-        if not exact:
-            n = int((b1 != b2).sum().item())
-            raise AssertionError(f"{label}: B2 differs from B1 on {n} pixels")
         if torch.unique(b1).numel() < 3:
             raise AssertionError(f"{label}: image is (nearly) constant")
+        cases = self.form_tables(cams, prims, height, 128)
+        g = cases["b3"]["clusters"].shape[1]
+        self.saw_short_table |= g < 8
+        self.saw_unpadded_b5 |= cases["b5"]["prims"].shape[1] < 8 * cases["b5"]["clusters"].shape[1]
+        report = {}
+        images = {"b1_merged": render(prims=prims, merge_tiles=True)}
+        for case, tabs in cases.items():
+            images[case] = render(**tabs)
+            images[case + "_merged"] = render(merge_tiles=True, **tabs)
+        torch.cuda.synchronize()
+        for case, img in images.items():
+            if not bool((img == b1).all().item()):
+                n = int((img != b1).sum().item())
+                raise AssertionError(f"{label}: {case} differs from B1 on {n} pixels")
+            report[case] = "== b1"
+        for case, tabs in cases.items():
+            if plain_cases is not None and case not in plain_cases:
+                continue
+            own = RC.render_packed_plain(cams, height=height, width=128,
+                                         ui_indicators=ui, **tabs)
+            for shape, name in ((case, CASE_FORM[case]), (case + "_merged", "render_b6")):
+                w, f = channel_diff(images[shape], own)
+                self.max_err[name] = max(self.max_err[name], w)
+                if w > 1 or f >= TOL_FRACTION:
+                    raise AssertionError(f"{label}: {shape} disagrees with its plain "
+                                         f"version (max {w}, fraction {f})")
+            report[case] += f", plain max {w}"
+        emit({"phase": "kernel_vs_plain", "case": label, "shape": list(b1.shape),
+              "rows": int(prims.shape[1]), "clusters": int(g),
+              "b1_max_channel_diff": worst, "b1_fraction_differing": frac,
+              "forms": report, "distinct_colours": int(torch.unique(b1).numel())})
 
     def kernels_vs_plain(self) -> None:
         from megaverse_tpu_torch import VectorEnv
-        from megaverse_tpu_torch.env import render_tables
+        from megaverse_tpu_torch.env import UNCULLED, RenderMode, render_tables
         from megaverse_tpu_torch.utils.synthetic import synthetic_cams, synthetic_prims
 
         prims_np = synthetic_prims(seed=7, num_envs=8)
@@ -167,16 +232,27 @@ class Smoke:
             self.compare(f"synthetic_all_types_ui={int(ui)}", cams, prims, 72, ui)
 
         rng = np.random.default_rng(1)
-        for name, envs, agents in (("TowerBuilding", 64, 4), ("Empty", 64, 2)):
+        for name, envs, agents in (("Collect", 64, 2), ("TowerBuilding", 64, 4),
+                                   ("Empty", 64, 2)):
             env = VectorEnv(name, envs, agents, seed=5)
             env.reset()
             for _ in range(20):
                 env.step(rng.integers(0, 2048, size=(envs, agents)).astype(np.int32))
-            tabs = render_tables(env.scenario, env.state, bucket=env._bucket, cull=False)
+            tabs = render_tables(env.scenario, env.state, bucket=env._bucket, mode=UNCULLED)
             self.compare(f"{name}_{envs}x{agents}_after_20_steps", tabs["cams"],
                          tabs["prims"], env.scenario.cfg.obs_height,
                          tabs["ui_indicators"])
+            if name == "Empty":
+                # short tables take per-tile cluster lists, not superclusters
+                short = render_tables(env.scenario, env.state, bucket=env._bucket,
+                                      mode=RenderMode(mode="super"))
+                if short["clusters"].shape[1] >= 8 or "sclusters" in short \
+                        or short["order"].dim() != 4:
+                    raise AssertionError("Empty: the short-table rule did not apply")
             env.close()
+        if not (self.saw_short_table and self.saw_unpadded_b5):
+            raise AssertionError("no case had a table shorter than 8 clusters / a "
+                                 "B5 prim table that is not padded")
 
     # ------------------------------------------------------------- phase 3
     @staticmethod
@@ -201,8 +277,11 @@ class Smoke:
         env = VectorEnv(name, envs, agents, seed=42, params=params)
         pool = self.action_pool(envs, agents)
         RC.reset_launch_counts()
+        t0 = time.perf_counter()
         obs = env.reset()
         torch.cuda.synchronize()
+        reset_seconds = time.perf_counter() - t0
+        reset_layout_seconds = env.layout_seconds
         any_done = torch.zeros((envs,), dtype=torch.bool, device=self.dev)
         secs = []
         for _ in range(chunks):
@@ -221,16 +300,21 @@ class Smoke:
         n_done = int(any_done.sum().item())
         emit({"phase": "main_path", "run": label, "scenario": name, "envs": envs,
               "agents": agents, "steps": steps, "launches": counts,
+              "render_mode": {k: v for k, v in vars(env.render_mode).items()},
+              "bucket": env._bucket,
               "obs_per_sec": rate, "ms_per_step": 1e3 * sum(timed) / (chunk * len(timed)),
               "chunk_seconds": secs, "envs_done": n_done,
               "refills": env.num_refills, "refilled_envs": env.num_refilled_envs,
+              "reset_seconds": reset_seconds,
+              "layout_seconds_reset": reset_layout_seconds,
+              "layout_seconds_total": env.layout_seconds,
+              "layouts_generated": 2 * envs + env.num_refilled_envs,
               "gpu": self.smi, "note": "first reading, not a claim"})
-        other = "render_b1" if form == "render_b2" else "render_b2"
-        if counts[form] != 1 + steps or counts[other] != 0:
-            raise AssertionError(f"{label}: launches {counts}, expected "
-                                 f"{1 + steps} of {form}")
-        for k in counts:
-            self.launches[k] += counts[k]
+        for k, n in counts.items():
+            if n != (1 + steps if k == form else 0):
+                raise AssertionError(f"{label}: launches {counts}, expected "
+                                     f"{1 + steps} of {form} and no other")
+            self.launches[k] += n
         if obs.dtype != torch.int32 or tuple(obs.shape) != (envs, agents, 72, 128):
             raise AssertionError(f"{label}: obs {obs.dtype} {tuple(obs.shape)}")
         if torch.unique(obs).numel() < 3:
@@ -249,9 +333,28 @@ class Smoke:
         return env if keep else None
 
     def main_path(self):
-        from megaverse_tpu_torch.env import render_tables
+        from megaverse_tpu_torch.env import UNCULLED, render_tables
         tower = self.drive("tower_1024x1", "TowerBuilding", 1024, 1, 64, 3, keep=True)
-        empty = self.drive("empty_4096x1", "Empty", 4096, 1, 64, 3, keep=True)
+        empty = self.drive("empty_4096x1", "Empty", 4096, 1, 64, 2, keep=True)
+        with ModeEnv(MEGAVERSE_NO_CLUSTER_CULL="1"):
+            self.drive("tower_1024x1_unculled", "TowerBuilding", 1024, 1, 16, 1,
+                       form="render_b1")
+        collect = self.drive("collect_1024x1", "Collect", 1024, 1, 64, 3, keep=True)
+        with ModeEnv(MEGAVERSE_RENDER_MODE="super"):
+            self.drive("collect_1024x1_super", "Collect", 1024, 1, 16, 1,
+                       form="render_b5")
+            with ModeEnv(MEGAVERSE_NO_SUPERCLUSTERS="1"):
+                self.drive("collect_1024x1_tile_lists", "Collect", 1024, 1, 16, 1,
+                           form="render_b4")
+                with ModeEnv(MEGAVERSE_NO_CLUSTER_SORT="1"):
+                    self.drive("collect_1024x1_in_order", "Collect", 1024, 1, 16, 1,
+                               form="render_b3")
+        with ModeEnv(MEGAVERSE_MERGE_TILES="1"):
+            self.drive("collect_1024x1_merged", "Collect", 1024, 1, 16, 1,
+                       form="render_b6")
+        hard = self.drive("obstacleshard_1024x1", "ObstaclesHard", 1024, 1, 64, 3,
+                          keep=True)
+        # Four agents per env (the per-agent passes of the stacking component).
         # TowerBuilding episodes last episodeLengthSec + 4 s per movable box
         # (>= 4 boxes), so with 4 s the shortest is 20 s = 300 steps; with seed
         # 42 the first envs time out at step 480. 22 chunks of 24 steps (the
@@ -259,83 +362,131 @@ class Smoke:
         # the layout buffer and get their slots refilled.
         self.drive("tower_256x4_short_episodes", "TowerBuilding", 256, 4, 24, 22,
                    params={"episodeLengthSec": 4.0}, expect_refill=True)
-        os.environ["MEGAVERSE_NO_CLUSTER_CULL"] = "1"
-        try:
-            self.drive("tower_1024x1_unculled", "TowerBuilding", 1024, 1, 64, 1,
-                       form="render_b1")
-        finally:
-            del os.environ["MEGAVERSE_NO_CLUSTER_CULL"]
+        # The same for the other scenario states.
+        # Collect episodes last episodeLengthSec + 2 s per reward diamond
+        # (>= 1), so with 4 s the shortest is 6 s = 90 steps: 8 chunks of 24
+        # steps (overlapped refill) see envs finish, restart from the layout
+        # buffer and get their slots refilled.
+        self.drive("collect_256x2_short_episodes", "Collect", 256, 2, 24, 8,
+                   params={"episodeLengthSec": 4.0}, expect_refill=True)
+        # Test is the Obstacles family with no obstacle platform and 6 s
+        # episodes: every env restarts at step 90 (synchronous refill:
+        # 2 * 64 >= 90).
+        self.drive("test_256x1_short_episodes", "Test", 256, 1, 64, 3,
+                   expect_refill=True)
         # the kernels against the plain version once more, at the very shapes
-        # and states the main path ended on
-        for label, env in (("TowerBuilding_1024x1", tower), ("Empty_4096x1", empty)):
-            tabs = render_tables(env.scenario, env.state, bucket=env._bucket, cull=False)
+        # and states the main path ended on; the forms this scenario's runs
+        # went through also against their own plain version
+        for label, env, plain_cases in (
+                ("TowerBuilding_1024x1", tower, ("b2",)),
+                ("Empty_4096x1", empty, ("b2",)),
+                ("Collect_1024x1", collect, ("b2", "b3", "b4_tile", "b5")),
+                ("ObstaclesHard_1024x1", hard, ("b2",))):
+            tabs = render_tables(env.scenario, env.state, bucket=env._bucket, mode=UNCULLED)
             self.compare(f"{label}_main_path_state", tabs["cams"], tabs["prims"],
-                         env.scenario.cfg.obs_height, tabs["ui_indicators"])
-        return tower
+                         env.scenario.cfg.obs_height, tabs["ui_indicators"],
+                         plain_cases=plain_cases)
+        return tower, collect
 
     # ------------------------------------------------------------- phase 4
-    def kernels_line(self, env) -> None:
-        from megaverse_tpu_torch.env import render_tables
+    def time_forms(self, env, cases_wanted):
+        """Kernel and plain-version milliseconds, bytes, operations and bound
+        of the wanted cases at the state `env` ended on."""
+        from megaverse_tpu_torch.env import UNCULLED, render_tables
         RC = self.RC
         height = env.scenario.cfg.obs_height
-        base = render_tables(env.scenario, env.state, bucket=env._bucket, cull=False)
+        base = render_tables(env.scenario, env.state, bucket=env._bucket, mode=UNCULLED)
         cams, prims, ui = base["cams"], base["prims"], base["ui_indicators"]
-        tabs = self.cull_tables(cams, prims, height)
+        cases = {"b1": dict(prims=prims)}
+        cases.update(self.form_tables(cams, prims, height, 128))
+        cases["b6_over_b2"] = dict(merge_tiles=True, **cases["b2"])
         bsz, agents = cams.shape[0], cams.shape[1]
         pixels = bsz * agents * height * 128
-
-        ms_b1 = time_cuda(lambda: RC.render_packed(cams, prims, height, 128,
-                                                   ui_indicators=ui), 20)
-        ms_b2 = time_cuda(lambda: RC.render_packed(cams, height=height, width=128,
-                                                   ui_indicators=ui, **tabs), 20)
-        ms_plain = time_cuda(lambda: RC.render_packed_plain(
-            cams, prims, height, 128, ui_indicators=ui), 2)
-        ms_plain_b2 = time_cuda(lambda: RC.render_packed_plain(
-            cams, height=height, width=128, ui_indicators=ui, **tabs), 2)
-        ms_prologue = time_cuda(lambda: self.cull_tables(cams, prims, height), 10)
-
-        # Roofline bounds from THIS run's inputs. Bytes: every input read once,
-        # the output written once. Operations: the rows each pixel visits.
-        nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)
-        out_bytes = pixels * 4
-        types = prims[:, :, 0]
-        n_aabb = int((types == 0).sum().item())
-        n_other = int((types > 0).sum().item())
-        n_dead = int((types < 0).sum().item())
-        px_per_env = agents * height * 128
-        ops_b1 = (px_per_env * (n_aabb * OPS_ROW_AABB + n_other * OPS_ROW_OTHER + n_dead * 2)
-                  + pixels * OPS_PIXEL_FIXED)
-        bytes_b1 = nbytes(cams, prims) + out_bytes
-        visits = RC.new_visits(cams, height)
-        RC.render_packed(cams, height=height, width=128, ui_indicators=ui,
-                         visits=visits, **tabs)
-        torch.cuda.synchronize()
-        v = visits.sum(dim=0).tolist()            # clusters run: [aabb, other]
-        px_per_block = pixels // visits.shape[0]
-        ops_b2 = (px_per_block * 8 * (v[0] * OPS_ROW_AABB + v[1] * OPS_ROW_OTHER)
-                  + pixels * OPS_PIXEL_FIXED)
-        bytes_b2 = nbytes(cams, *tabs.values()) + out_bytes
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts
+                                if isinstance(t, torch.Tensor))
 
         def bound(nb, ops):
             tb, to = 1e3 * nb / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOP_PER_S
             return max(tb, to), ("bytes" if tb >= to else "operations")
 
-        rows = []
-        for name, ms, plain_ms, nb, ops in (
-                ("render_b1", ms_b1, ms_plain, bytes_b1, ops_b1),
-                ("render_b2", ms_b2, ms_plain_b2, bytes_b2, ops_b2)):
+        types = prims[:, :, 0]
+        n_aabb = int((types == 0).sum().item())
+        n_other = int((types > 0).sum().item())
+        n_dead = int((types < 0).sum().item())
+        out = {}
+        for case in cases_wanted:
+            tabs = cases[case]
+            run = lambda: RC.render_packed(cams, height=height, width=128,
+                                           ui_indicators=ui, **tabs)
+            ms = time_cuda(run, 20)
+            # the plain version takes seconds at this shape: one call, not warmed
+            plain_ms = time_cuda(lambda: RC.render_packed_plain(
+                cams, height=height, width=128, ui_indicators=ui, **tabs), 1, warm=False)
+            # Roofline bound from THIS run's inputs. Bytes: every input read
+            # once, the output written once. Operations: the rows each pixel
+            # visits: all of them for B1, for the others what the kernel
+            # itself counted per sub-block (`visits`).
+            nb = nbytes([cams, *tabs.values()]) + pixels * 4
+            if case == "b1":
+                ops = (agents * height * 128 * (n_aabb * OPS_ROW_AABB + n_other * OPS_ROW_OTHER
+                                                + n_dead * 2) + pixels * OPS_PIXEL_FIXED)
+                mean_clusters = None
+            else:
+                visits = RC.new_visits(cams, height)
+                RC.render_packed(cams, height=height, width=128, ui_indicators=ui,
+                                 visits=visits, **tabs)
+                torch.cuda.synchronize()
+                v = visits.sum(dim=0).tolist()          # clusters run: [aabb, other]
+                px_per_block = pixels // visits.shape[0]
+                ops = (px_per_block * 8 * (v[0] * OPS_ROW_AABB + v[1] * OPS_ROW_OTHER)
+                       + pixels * OPS_PIXEL_FIXED)
+                mean_clusters = sum(v) / visits.shape[0]
             b_ms, by = bound(nb, ops)
-            rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                         "replaces": REPLACES, "launches": self.launches[name],
-                         "max_abs_err": self.max_err[name], "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-                         "library_ms": None})
-        emit({"phase": "kernel_times", "shape": [bsz, agents, height, 128],
-              "rows": int(prims.shape[1]), "rows_padded": int(tabs["prims"].shape[1]),
-              "live_aabb_rows": n_aabb, "live_other_rows": n_other,
-              "mean_clusters_run_per_block": sum(v) / visits.shape[0],
-              "cull_prologue_ms": ms_prologue, "bytes_b1": bytes_b1, "ops_b1": ops_b1,
-              "bytes_b2": bytes_b2, "ops_b2": ops_b2, "gpu": self.smi})
+            out[case] = dict(ms=ms, plain_ms=plain_ms, bytes=nb, ops=ops, bound_ms=b_ms,
+                             bound_by=by, mean_clusters_run_per_block=mean_clusters)
+        prologue = {
+            "cull_bits": lambda: RC.cull_bits(cams, cases["b2"]["clusters"], height, 128),
+            "sort_clusters": lambda: RC.sort_clusters(cams, cases["b3"]["clusters"]),
+            "frustum_cull_clusters": lambda: RC.frustum_cull(
+                cams, cases["b3"]["clusters"], height, 128),
+            "frustum_cull_superclusters": lambda: RC.frustum_cull(
+                cams, cases["b5"]["sclusters"], height, 128),
+            "all_tables": lambda: self.form_tables(cams, prims, height, 128),
+        }
+        meta = {"shape": [bsz, agents, height, 128], "rows": int(prims.shape[1]),
+                "rows_padded": int(cases["b2"]["prims"].shape[1]),
+                "clusters": int(cases["b3"]["clusters"].shape[1]),
+                "live_aabb_rows": n_aabb, "live_other_rows": n_other,
+                "prologue_ms": {k: time_cuda(f, 5) for k, f in prologue.items()},
+                "gpu": self.smi}
+        return out, meta
+
+    def kernels_line(self, tower, collect) -> None:
+        all_cases = ("b1", "b2", "b3", "b4_agent", "b4_agent_dist", "b4_tile",
+                     "b4_shuffled", "b5", "b6_over_b2")
+        at_collect, meta_c = self.time_forms(collect, all_cases)
+        at_tower, meta_t = self.time_forms(tower, ("b1", "b2"))
+        emit({"phase": "kernel_times", "scenario": "Collect", **meta_c, "cases": at_collect})
+        emit({"phase": "kernel_times", "scenario": "TowerBuilding", **meta_t,
+              "cases": at_tower})
+        # one row per kernel form; B4 is read at the per-tile lists, B6 at the
+        # merged bit-walk: the variants the main path ran
+        rows = []
+        for name, case in (("render_b1", "b1"), ("render_b2", "b2"), ("render_b3", "b3"),
+                           ("render_b4", "b4_tile"), ("render_b5", "b5"),
+                           ("render_b6", "b6_over_b2")):
+            c = at_collect[case]
+            row = {"name": name, "route": "cuda", "source": SOURCE,
+                   "replaces": REPLACES[name], "launches": self.launches[name],
+                   "max_abs_err": self.max_err[name], "ms": c["ms"],
+                   "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                   "bound_by": c["bound_by"], "library_ms": None,
+                   "shape": "Collect 1024x1"}
+            if case in at_tower:
+                t = at_tower[case]
+                row.update(ms_towerbuilding=t["ms"], plain_ms_towerbuilding=t["plain_ms"],
+                           bound_ms_towerbuilding=t["bound_ms"])
+            rows.append(row)
         for r in rows:
             if r["launches"] < 1:
                 raise AssertionError(f"{r['name']} was never launched on the main path")
@@ -354,13 +505,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
     smoke = Smoke()
     smoke.machine()
     smoke.kernels_vs_plain()
     if args.phase == "kernels":
         return 0
-    tower = smoke.main_path()
-    smoke.kernels_line(tower)
+    tower, collect = smoke.main_path()
+    smoke.kernels_line(tower, collect)
+    emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smoke.smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

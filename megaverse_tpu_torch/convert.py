@@ -66,6 +66,15 @@ def _scen(scen_cls: Optional[Type], tree, device):
     return _sub(scen_cls, tree, device)
 
 
+def scen_class(scenario_name: str) -> Optional[Type]:
+    """The port's scenario-state dataclass for a registered scenario name
+    (TowerState, CollectState, ObstaclesState, ...; None for scenarios that
+    carry no extra state): the `scen_cls` the converters below take."""
+    from megaverse_tpu_torch.scenarios import make_scenario
+
+    return make_scenario(scenario_name).scen_cls
+
+
 def scene_from_numpy(tree: Dict[str, Any], scen_cls: Optional[Type] = None,
                      device="cpu") -> SceneData:
     """Nested dict of batched numpy arrays (SceneData fields) -> SceneData of

@@ -1,15 +1,24 @@
-// Analytic raycast renderer for NVIDIA Hopper (sm_90a): forms B1 and B2.
+// Analytic raycast renderer for NVIDIA Hopper (sm_90a): forms B1 to B6.
 //
 // Replaces the Pallas TPU kernel `_render_kernel` of
-// megaverse_tpu/ops/raycast_pallas.py (launched from its `render_packed`):
-//   B1  unculled, in table order  (cluster_k=0: loop over all M rows, generic
-//       row test, strict `t < best` carry, best starts at +INF);
-//   B2  bit-walk (bit_walk=True): per 8x128 pixel tile, walk the tile's
-//       front-to-back supercluster list, test member bits, skip members and
-//       stop the walk on the depth bound, run 8-row clusters through the body
-//       chosen by the cluster tag, tie-break carry on the row index, depth
-//       bound refreshed lazily by a block reduction.
-// Both write packed RGB int32 [B, A, H, 128].
+// megaverse_tpu/ops/raycast_pallas.py (launched from its `render_packed`).
+// Its six forms are one kernel template here, `render_kernel<FORM, MERGED>`:
+//   B1  unculled, in table order (loop over all M rows, generic row test,
+//       strict `t < best` carry, best starts at +INF);
+//   B2  bit-walk: per 8x128 pixel tile, walk the tile's front-to-back
+//       supercluster list, test member bits, skip members and stop the walk on
+//       the depth bound, run 8-row clusters through the body chosen by the
+//       cluster tag, tie-break carry on the row index, depth bound refreshed
+//       lazily by a block reduction;
+//   B3  clustered, in table order: every cluster's box is slab-tested per
+//       pixel against the current depths, a block-wide vote decides whether
+//       its rows run;
+//   B4  B3 through a sorted list (per agent or per tile), optionally ending
+//       early on the list's distance bounds;
+//   B5  two-level: per-tile lists over superclusters, members re-tested;
+//   B6  any of B1-B5 with ONE block per (env, agent) frame that loops the
+//       frame's tiles (MERGED = true) instead of one block per sub-block.
+// All write packed RGB int32 [B, A, H, 128].
 //
 // What bounds it on this card: arithmetic, not memory. A frame reads a few KB
 // of tables per env and writes 4 bytes per pixel, while every visited table
@@ -17,20 +26,23 @@
 // nothing on data movement tricks: one thread owns one pixel, its ray and its
 // closest-hit carry live in registers, and every table value is a
 // block-uniform load that the read-only cache broadcasts. What it does about
-// the arithmetic is B2 itself: the cull tables cut the rows a tile visits from
-// M to the handful in front of the nearest occluder.
+// the arithmetic is the culling of B2-B5: the tables cut the rows a tile
+// visits from M to the handful in front of the nearest occluder.
 //
-// Block shape: 256 threads = 2 pixel rows x 128 columns; four blocks share one
-// 8-row tile (and its cull lists). All loop conditions depend only on table
-// values and on a block-wide maximum that every thread receives, so no thread
-// leaves a loop alone.
+// Block shape: 256 threads = 2 pixel rows x 128 columns; four sub-blocks share
+// one 8-row tile (and its cull lists). The reference decides per 8-row tile
+// whether any ray can reach a cluster; here the vote (__syncthreads_or) and
+// the depth bound (block_max) are per 2-row sub-block, a subset of that tile:
+// fewer rows run, the image is the same (a skipped row can never win). All
+// loop conditions depend only on table values, on that vote and on that
+// maximum, which every thread receives, so no thread leaves a loop alone.
 //
-// Exactness: B2 must produce the image of B1 bit for bit, which rests on every
-// row body computing a bit-equal `t` for the same row. The bodies share the
-// intersection routines below, and the file MUST be compiled with -fmad=false
-// (nvcc would otherwise contract a*b-c into FMA differently per inlined call
-// site) and WITHOUT --use_fast_math. Only rsqrtf, sinf, cosf, sqrtf and IEEE
-// division are used; never __sinf/__cosf/__fdividef.
+// Exactness: every form must produce the image of B1 bit for bit, which rests
+// on every row body computing a bit-equal `t` for the same row. The bodies
+// share the intersection routines below, and the file MUST be compiled with
+// -fmad=false (nvcc would otherwise contract a*b-c into FMA differently per
+// inlined call site) and WITHOUT --use_fast_math. Only rsqrtf, sinf, cosf,
+// sqrtf and IEEE division are used; never __sinf/__cosf/__fdividef.
 
 #include <cuda_runtime.h>
 
@@ -489,9 +501,12 @@ struct Pixel {
   float uu, vv;           // normalized device coords of the pixel centre
 };
 
-__device__ __forceinline__ Pixel locate(int num_agents, int tiles, int height) {
+// `blk` numbers the 2-row sub-blocks of the whole batch: sub-block fastest,
+// then tile row, agent, env. It is blockIdx.x for the tiled launch and runs
+// over one frame's sub-blocks inside a block of the merged launch.
+__device__ __forceinline__ Pixel locate(int blk, int num_agents, int tiles,
+                                        int height) {
   Pixel px;
-  int blk = blockIdx.x;
   int sub = blk % SUBS;
   blk /= SUBS;
   px.tile = blk % tiles;
@@ -630,34 +645,43 @@ __device__ __forceinline__ void epilogue(const Pixel& px, const Ray& ray,
 }
 
 // ---------------------------------------------------------------------------
-// B1: unculled, in table order.
+// Traversals. One `trace<FORM>` per form of the reference kernel; each handles
+// one 256-thread sub-block (2 pixel rows) and leaves the closest hit in `c`.
+// Every loop bound and every branch into a row body below depends only on
+// table values, on a block-wide vote (__syncthreads_or) or on block_max, so
+// all threads of a block take the same path and reach the same barriers.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(NTHREADS)
-render_b1_kernel(const float* __restrict__ cams, const float* __restrict__ prims,
-                 const float* __restrict__ kc, int* __restrict__ out,
-                 int num_agents, int height, int num_prims, int ui_indicators) {
-  const int tiles = height / TILE_H;
-  Pixel px = locate(num_agents, tiles, height);
-  const float* cam = cams + ((size_t)px.b * num_agents + px.a) * 8;
-  Ray ray = make_ray(px, cam, kc);
-  const float* table = prims + (size_t)px.b * num_prims * ROW_W;
+enum { FORM_B1 = 1, FORM_B2, FORM_B3, FORM_B4, FORM_B5 };
 
-  Carry c;
-  c.t = INF_T;
-  c.idx = num_prims;
-  c.nx = c.ny = c.nz = 0.0f;
-  c.code = CODE_DIRECT;
-  c.c = 0.0f;
-#pragma unroll 1
-  for (int i = 0; i < num_prims; ++i)
-    body_generic<false>(ray, table + (size_t)i * ROW_W, i, c);
+struct Args {
+  const float* __restrict__ cams;       // [B, A, 8]
+  const float* __restrict__ prims;      // [B, M, 12]
+  const float* __restrict__ clusters;   // [B, G, 8]             (B2-B5)
+  const float* __restrict__ sclusters;  // [B, S, 8]             (B5)
+  const int* __restrict__ order;        // [B, A, (T,) L]        (B4, B5)
+  const float* __restrict__ dist;       // like order, or null   (B4, B5)
+  const int* __restrict__ sclist;       // [B, A, T, S]          (B2)
+  const int* __restrict__ clbits;       // [B, A, T, words]      (B2)
+  const float* __restrict__ scdist;     // [B, A, T, S]          (B2)
+  const float* __restrict__ cdist;      // [B, A, G]             (B2)
+  const float* __restrict__ kc;         // render constants
+  int* __restrict__ out;                // [B, A, H, 128]
+  int* __restrict__ visits;             // [sub-blocks, 2] or null
+  int num_agents, height, num_prims, num_clusters, num_words;
+  int list_len;                         // L: entries per list of `order`
+  int per_tile;                         // lists per (env, agent, tile)
+  int ui_indicators;
+};
 
-  epilogue(px, ray, c, cam, kc, ui_indicators, height, num_agents, out);
-}
+struct Walk {
+  const float* table;   // this env's prim rows
+  const float* ctab;    // this env's cluster boxes
+  size_t ba;            // env * A + agent
+  size_t bat;           // (env * A + agent) * T + tile
+  int ran_aabb, ran_other;   // clusters run, by body (for `visits`)
+};
 
-// ---------------------------------------------------------------------------
-// B2: bit-walk.
-// ---------------------------------------------------------------------------
+template <bool TIE>
 __device__ __forceinline__ void run_cluster(const Ray& ray,
                                             const float* __restrict__ table,
                                             const float* __restrict__ clusters,
@@ -669,75 +693,110 @@ __device__ __forceinline__ void run_cluster(const Ray& ray,
     case 0:
 #pragma unroll 1
       for (int j = 0; j < CLUSTER_K; ++j)
-        body_aabb<true>(ray, p + j * ROW_W, base + j, c);
+        body_aabb<TIE>(ray, p + j * ROW_W, base + j, c);
       break;
     case 6:
 #pragma unroll 1
       for (int j = 0; j < CLUSTER_K; ++j)
-        body_rotbox<true>(ray, p + j * ROW_W, base + j, c);
+        body_rotbox<TIE>(ray, p + j * ROW_W, base + j, c);
       break;
     case 1:
 #pragma unroll 1
       for (int j = 0; j < CLUSTER_K; ++j)
-        body_ellipsoid<true>(ray, p + j * ROW_W, base + j, c);
+        body_ellipsoid<TIE>(ray, p + j * ROW_W, base + j, c);
       break;
     case 2:
 #pragma unroll 1
       for (int j = 0; j < CLUSTER_K; ++j)
-        body_cylinder<true>(ray, p + j * ROW_W, base + j, c);
+        body_cylinder<TIE>(ray, p + j * ROW_W, base + j, c);
       break;
     case 3:
     case 4:
     case 8:  // TAG_CONE_MIXED
 #pragma unroll 1
       for (int j = 0; j < CLUSTER_K; ++j)
-        body_cone<true>(ray, p + j * ROW_W, base + j, c);
+        body_cone<TIE>(ray, p + j * ROW_W, base + j, c);
       break;
     case 7:
 #pragma unroll 1
       for (int j = 0; j < CLUSTER_K; ++j)
-        body_wall<true>(ray, p + j * ROW_W, base + j, c);
+        body_wall<TIE>(ray, p + j * ROW_W, base + j, c);
       break;
     default:
 #pragma unroll 1
       for (int j = 0; j < CLUSTER_K; ++j)
-        body_generic<true>(ray, p + j * ROW_W, base + j, c);
+        body_generic<TIE>(ray, p + j * ROW_W, base + j, c);
       break;
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-render_b2_kernel(const float* __restrict__ cams, const float* __restrict__ prims,
-                 const float* __restrict__ clusters, const int* __restrict__ sclist,
-                 const int* __restrict__ clbits, const float* __restrict__ scdist,
-                 const float* __restrict__ cdist, const float* __restrict__ kc,
-                 int* __restrict__ out, int num_agents, int height,
-                 int num_prims, int num_clusters, int num_words,
-                 int ui_indicators, int* __restrict__ visits) {
-  __shared__ float red[NWARPS];
-  const int tiles = height / TILE_H;
-  const int num_super = num_clusters / SUPER_K;
-  Pixel px = locate(num_agents, tiles, height);
-  const size_t ba = (size_t)px.b * num_agents + px.a;
-  const float* cam = cams + ba * 8;
-  Ray ray = make_ray(px, cam, kc);
-  const float* table = prims + (size_t)px.b * num_prims * ROW_W;
-  const float* ctab = clusters + (size_t)px.b * num_clusters * 8;
-  const size_t bat = ba * tiles + px.tile;
-  const int* sl = sclist + bat * num_super;
-  const float* sd = scdist + bat * num_super;
-  const unsigned* cw = reinterpret_cast<const unsigned*>(clbits) + bat * num_words;
-  const float* cd = cdist + ba * num_clusters;
+// Run cluster gc and count it for `visits`.
+template <bool TIE>
+__device__ __forceinline__ void visit_cluster(const Ray& ray, Walk& w, int gc,
+                                              Carry& c) {
+  run_cluster<TIE>(ray, w.table, w.ctab, gc, c);
+  if ((int)__ldg(w.ctab + (size_t)gc * 8 + 6) == 0) ++w.ran_aabb; else ++w.ran_other;
+}
+
+// Can this pixel's ray still find a hit closer than `bt` inside the box
+// (lo xyz, hi xyz)? No `tmin > near` term: a camera inside the box must still
+// process it. SLACK absorbs the rounding between these slab products and the
+// per-type intersection routines (a quadric's hit can land an ulp before the
+// box entry); it assumes unit ray directions. A dead box (point at +INF)
+// gives tmin = +inf or tmax = -inf and never passes.
+__device__ __forceinline__ bool box_reachable(const Ray& r,
+                                              const float* __restrict__ box,
+                                              float bt) {
+  float t1x = __ldg(box + 0) * r.ix - r.exix;
+  float t2x = __ldg(box + 3) * r.ix - r.exix;
+  float t1y = __ldg(box + 1) * r.iy - r.eyiy;
+  float t2y = __ldg(box + 4) * r.iy - r.eyiy;
+  float t1z = __ldg(box + 2) * r.iz - r.eziz;
+  float t2z = __ldg(box + 5) * r.iz - r.eziz;
+  float tmin = fmaxf(fminf(t1x, t2x), fmaxf(fminf(t1y, t2y), fminf(t1z, t2z)));
+  float tmax = fminf(fmaxf(t1x, t2x), fminf(fmaxf(t1y, t2y), fmaxf(t1z, t2z)));
+  return (tmax >= tmin) && (tmax > 0.0f) && (tmin < bt + SLACK);
+}
+
+// Does cluster gc own eight rows of the table? False for the clusters that
+// pad the cluster table to whole superclusters when the prim table itself was
+// not padded (form B5): no row past num_prims is ever read.
+__device__ __forceinline__ bool cluster_has_rows(int gc, int num_prims) {
+  return gc >= 0 && gc * CLUSTER_K + CLUSTER_K <= num_prims;
+}
+
+template <int FORM>
+__device__ __forceinline__ void trace(const Args& A, const Pixel& px,
+                                      const Ray& ray, Walk& w, Carry& c,
+                                      float* red);
+
+// B1: unculled, every row in table order, generic row test, strict carry.
+template <>
+__device__ __forceinline__ void trace<FORM_B1>(const Args& A, const Pixel& px,
+                                               const Ray& ray, Walk& w,
+                                               Carry& c, float* red) {
+  c.t = INF_T;
+#pragma unroll 1
+  for (int i = 0; i < A.num_prims; ++i)
+    body_generic<false>(ray, w.table + (size_t)i * ROW_W, i, c);
+}
+
+// B2: bit-walk over the tile's front-to-back supercluster list.
+template <>
+__device__ __forceinline__ void trace<FORM_B2>(const Args& A, const Pixel& px,
+                                               const Ray& ray, Walk& w,
+                                               Carry& c, float* red) {
+  const int num_super = A.num_clusters / SUPER_K;
+  const int* sl = A.sclist + w.bat * num_super;
+  const float* sd = A.scdist + w.bat * num_super;
+  const unsigned* cw =
+      reinterpret_cast<const unsigned*>(A.clbits) + w.bat * A.num_words;
+  const float* cd = A.cdist + w.ba * A.num_clusters;
 
   // The depth starts at the FAR plane (not +INF): hits at t >= far render as
   // sky either way, and a tile whose rays all miss then has maxt == far
   // instead of an unskippable +INF bound.
-  Carry c;
   c.t = FAR_T;
-  c.idx = num_prims;
-  c.nx = c.ny = c.nz = 0.0f;
-  c.code = CODE_DIRECT;
-  c.c = 0.0f;
 
   // maxt is an upper bound on this block's per-ray depths. cdist/scdist are
   // geometric lower bounds (eye -> cluster AABB distance; ray dirs are unit
@@ -745,7 +804,6 @@ render_b2_kernel(const float* __restrict__ cams, const float* __restrict__ prims
   // cluster's hits satisfy t > maxt >= best strictly: neither a win nor a tie.
   float maxt = FAR_T;
   int nproc = 0;
-  int ran_aabb = 0, ran_other = 0;   // clusters run, by body (for `visits`)
   for (int g = 0; g < num_super; ++g) {
     int gs = __ldg(sl + g);
     if (gs >= num_super) break;                      // sentinel: end of list
@@ -756,9 +814,8 @@ render_b2_kernel(const float* __restrict__ cams, const float* __restrict__ prims
       int gc = gs * SUPER_K + j;
       unsigned bit = (__ldg(cw + (gc >> 5)) >> (gc & 31)) & 1u;
       if (bit && (__ldg(cd + gc) <= maxt + SLACK)) {
-        run_cluster(ray, table, ctab, gc, c);
+        visit_cluster<true>(ray, w, gc, c);
         ran = 1;
-        if ((int)__ldg(ctab + (size_t)gc * 8 + 6) == 0) ++ran_aabb; else ++ran_other;
       }
     }
     nproc += ran;
@@ -767,47 +824,185 @@ render_b2_kernel(const float* __restrict__ cams, const float* __restrict__ prims
     // skips (maxt only ever overestimates the depths).
     if (ran && ((nproc & 3) == 1)) maxt = block_max(c.t, red);
   }
+}
 
-  epilogue(px, ray, c, cam, kc, ui_indicators, height, num_agents, out);
-  // Optional measurement output: how many clusters this block ran.
-  if (visits != nullptr && threadIdx.x == 0) {
-    visits[2 * (size_t)blockIdx.x + 0] = ran_aabb;
-    visits[2 * (size_t)blockIdx.x + 1] = ran_other;
+// B3: clustered, in table order. Per cluster one slab test of its box against
+// the pixel's current depth, a block-wide vote, then the rows. Strict carry
+// from +INF: rows run in table order, and a skipped row could at best tie.
+template <>
+__device__ __forceinline__ void trace<FORM_B3>(const Args& A, const Pixel& px,
+                                               const Ray& ray, Walk& w,
+                                               Carry& c, float* red) {
+  c.t = INF_T;
+  const int groups = A.num_prims / CLUSTER_K;
+  for (int g = 0; g < groups; ++g) {
+    if (__syncthreads_or(box_reachable(ray, w.ctab + (size_t)g * 8, c.t)))
+      visit_cluster<false>(ray, w, g, c);
   }
+}
+
+// B4: B3 visited through a list. `order` may be ANY permutation of the
+// clusters, so the carry breaks ties towards the lowest row index. With
+// `dist` (ascending lower bounds on the hit distance of the listed clusters)
+// the depth starts at the far plane and the walk ends at the first entry
+// beyond the block's largest depth, which is refreshed (one block reduction)
+// after every cluster whose rows ran.
+template <>
+__device__ __forceinline__ void trace<FORM_B4>(const Args& A, const Pixel& px,
+                                               const Ray& ray, Walk& w,
+                                               Carry& c, float* red) {
+  const size_t list = (A.per_tile ? w.bat : w.ba) * (size_t)A.list_len;
+  const int* ord = A.order + list;
+  const float* dst = A.dist ? A.dist + list : nullptr;
+  c.t = dst ? FAR_T : INF_T;
+  float maxt = FAR_T;
+  for (int g = 0; g < A.list_len; ++g) {
+    if (dst && !(maxt >= __ldg(dst + g))) break;
+    int gc = __ldg(ord + g);
+    if (!cluster_has_rows(gc, A.num_prims)) continue;
+    if (__syncthreads_or(box_reachable(ray, w.ctab + (size_t)gc * 8, c.t))) {
+      visit_cluster<true>(ray, w, gc, c);
+      if (dst) maxt = block_max(c.t, red);
+    }
+  }
+}
+
+// B5: two levels. The tile's list is over superclusters; one slab test and
+// vote per listed supercluster prunes 4 clusters x 8 rows, its members are
+// then tested as in B3 against the running depths.
+template <>
+__device__ __forceinline__ void trace<FORM_B5>(const Args& A, const Pixel& px,
+                                               const Ray& ray, Walk& w,
+                                               Carry& c, float* red) {
+  const int num_super = A.num_clusters / SUPER_K;
+  const float* sctab = A.sclusters + (size_t)px.b * num_super * 8;
+  const size_t list = (A.per_tile ? w.bat : w.ba) * (size_t)A.list_len;
+  const int* ord = A.order + list;
+  const float* dst = A.dist + list;
+  c.t = FAR_T;
+  float maxt = FAR_T;
+  for (int gpos = 0; gpos < A.list_len; ++gpos) {
+    if (!(maxt >= __ldg(dst + gpos))) break;
+    int gsc = __ldg(ord + gpos);
+    if (gsc < 0 || gsc >= num_super) continue;
+    if (!__syncthreads_or(box_reachable(ray, sctab + (size_t)gsc * 8, c.t)))
+      continue;
+#pragma unroll 1
+    for (int j = 0; j < SUPER_K; ++j) {
+      int gc = gsc * SUPER_K + j;
+      if (!cluster_has_rows(gc, A.num_prims)) continue;
+      if (__syncthreads_or(box_reachable(ray, w.ctab + (size_t)gc * 8, c.t))) {
+        visit_cluster<true>(ray, w, gc, c);
+        maxt = block_max(c.t, red);
+      }
+    }
+  }
+}
+
+// One kernel for every form. Tiled launch (MERGED = false): one block per
+// 2-row sub-block, grid B * A * T * SUBS. Merged launch (B6): one block per
+// (env, agent) frame that loops the frame's T * SUBS sub-blocks.
+template <int FORM, bool MERGED>
+__global__ void __launch_bounds__(NTHREADS)
+render_kernel(const __grid_constant__ Args A) {
+  __shared__ float red[NWARPS];
+  const int tiles = A.height / TILE_H;
+  const int per_frame = tiles * SUBS;
+  const int first = MERGED ? blockIdx.x * per_frame : blockIdx.x;
+  const int count = MERGED ? per_frame : 1;
+#pragma unroll 1
+  for (int k = 0; k < count; ++k) {
+    const int blk = first + k;
+    Pixel px = locate(blk, A.num_agents, tiles, A.height);
+    Walk w;
+    w.ba = (size_t)px.b * A.num_agents + px.a;
+    w.bat = w.ba * tiles + px.tile;
+    w.table = A.prims + (size_t)px.b * A.num_prims * ROW_W;
+    w.ctab = A.clusters + (size_t)px.b * A.num_clusters * 8;
+    w.ran_aabb = w.ran_other = 0;
+    const float* cam = A.cams + w.ba * 8;
+    Ray ray = make_ray(px, cam, A.kc);
+
+    Carry c;
+    c.idx = A.num_prims;
+    c.nx = c.ny = c.nz = 0.0f;
+    c.code = CODE_DIRECT;
+    c.c = 0.0f;
+    trace<FORM>(A, px, ray, w, c, red);
+
+    epilogue(px, ray, c, cam, A.kc, A.ui_indicators, A.height, A.num_agents,
+             A.out);
+    // Optional measurement output: how many clusters this sub-block ran.
+    if (A.visits != nullptr && threadIdx.x == 0) {
+      A.visits[2 * (size_t)blk + 0] = w.ran_aabb;
+      A.visits[2 * (size_t)blk + 1] = w.ran_other;
+    }
+  }
+}
+
+template <int FORM>
+int launch(const Args& A, int batch, int merged, cudaStream_t stream) {
+  const int frames = batch * A.num_agents;
+  if (frames > 0) {
+    if (merged)
+      render_kernel<FORM, true><<<frames, NTHREADS, 0, stream>>>(A);
+    else
+      render_kernel<FORM, false>
+          <<<frames * (A.height / TILE_H) * SUBS, NTHREADS, 0, stream>>>(A);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Every pointer is a device pointer (`visits` may be null). Returns cudaGetLastError() after the
-// launch (0 = accepted); the launch runs asynchronously on `stream`.
-int mv_render_b1(const float* cams, const float* prims, const float* kc,
-                 int* out, int batch, int num_agents, int height, int num_prims,
-                 int ui_indicators, cudaStream_t stream) {
-  int blocks = batch * num_agents * (height / TILE_H) * SUBS;
-  if (blocks > 0)
-    render_b1_kernel<<<blocks, NTHREADS, 0, stream>>>(
-        cams, prims, kc, out, num_agents, height, num_prims, ui_indicators);
-  return (int)cudaGetLastError();
+// Launch form `form` (1..5 = B1..B5) of the renderer, tiled or (merged != 0)
+// as form B6. Every pointer is a device pointer; those a form does not read
+// may be null, and so may `dist` (B4 without early exit) and `visits`.
+// Returns cudaGetLastError() after the launch (0 = accepted, -1 = unknown
+// form); the launch runs asynchronously on `stream`.
+int mv_render(int form, int merged, const float* cams, const float* prims,
+              const float* clusters, const float* sclusters, const int* order,
+              const float* dist, const int* sclist, const int* clbits,
+              const float* scdist, const float* cdist, const float* kc,
+              int* out, int* visits, int batch, int num_agents, int height,
+              int num_prims, int num_clusters, int num_words, int list_len,
+              int per_tile, int ui_indicators, cudaStream_t stream) {
+  Args A;
+  A.cams = cams;
+  A.prims = prims;
+  A.clusters = clusters;
+  A.sclusters = sclusters;
+  A.order = order;
+  A.dist = dist;
+  A.sclist = sclist;
+  A.clbits = clbits;
+  A.scdist = scdist;
+  A.cdist = cdist;
+  A.kc = kc;
+  A.out = out;
+  A.visits = visits;
+  A.num_agents = num_agents;
+  A.height = height;
+  A.num_prims = num_prims;
+  A.num_clusters = num_clusters;
+  A.num_words = num_words;
+  A.list_len = list_len;
+  A.per_tile = per_tile;
+  A.ui_indicators = ui_indicators;
+  switch (form) {
+    case FORM_B1: return launch<FORM_B1>(A, batch, merged, stream);
+    case FORM_B2: return launch<FORM_B2>(A, batch, merged, stream);
+    case FORM_B3: return launch<FORM_B3>(A, batch, merged, stream);
+    case FORM_B4: return launch<FORM_B4>(A, batch, merged, stream);
+    case FORM_B5: return launch<FORM_B5>(A, batch, merged, stream);
+    default: return -1;
+  }
 }
 
-int mv_render_b2(const float* cams, const float* prims, const float* clusters,
-                 const int* sclist, const int* clbits, const float* scdist,
-                 const float* cdist, const float* kc, int* out, int batch,
-                 int num_agents, int height, int num_prims, int num_clusters,
-                 int num_words, int ui_indicators, int* visits,
-                 cudaStream_t stream) {
-  int blocks = batch * num_agents * (height / TILE_H) * SUBS;
-  if (blocks > 0)
-    render_b2_kernel<<<blocks, NTHREADS, 0, stream>>>(
-        cams, prims, clusters, sclist, clbits, scdist, cdist, kc, out,
-        num_agents, height, num_prims, num_clusters, num_words, ui_indicators,
-        visits);
-  return (int)cudaGetLastError();
-}
-
-// 256-thread blocks per 8-row tile (sizes the `visits` buffer: 2 ints a block).
+// 256-thread sub-blocks per 8-row tile (sizes the `visits` buffer: 2 ints a
+// sub-block, whichever launch shape).
 int mv_render_blocks_per_tile() { return SUBS; }
 
 int mv_render_const_count() { return K_COUNT; }

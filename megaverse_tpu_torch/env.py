@@ -10,7 +10,9 @@ observations through the render kernel (ops/raycast_cuda.py).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import dataclasses
+import os
+from typing import Mapping, NamedTuple, Optional
 
 import torch
 
@@ -199,16 +201,52 @@ def render_view(states: EnvState) -> RenderView:
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class RenderMode:
+    """Which form of the render kernel `render_tables` prepares: the switches
+    the reference reads from the environment in its `render_batch`, with the
+    same meaning and defaults. An environment variable counts as set when it
+    is non-empty."""
+    mode: str = "bits"            # MEGAVERSE_RENDER_MODE: "bits" = bit-walk (B2)
+    cluster_cull: bool = True     # MEGAVERSE_NO_CLUSTER_CULL clears it: unculled (B1)
+    cluster_sort: bool = True     # MEGAVERSE_NO_CLUSTER_SORT: clusters in table order (B3)
+    tile_cull: bool = True        # MEGAVERSE_NO_TILE_CULL: per-agent lists (B4)
+    early_exit: bool = True       # MEGAVERSE_NO_EARLY_EXIT: per-agent lists, no dist (B4)
+    superclusters: bool = True    # MEGAVERSE_NO_SUPERCLUSTERS: per-tile cluster lists (B4)
+    merge_tiles: bool = False     # MEGAVERSE_MERGE_TILES: one block per frame (B6)
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "RenderMode":
+        env = os.environ if environ is None else environ
+        off = lambda name: not env.get(name)
+        return cls(
+            mode=env.get("MEGAVERSE_RENDER_MODE", "bits"),
+            cluster_cull=off("MEGAVERSE_NO_CLUSTER_CULL"),
+            cluster_sort=off("MEGAVERSE_NO_CLUSTER_SORT"),
+            tile_cull=off("MEGAVERSE_NO_TILE_CULL"),
+            early_exit=off("MEGAVERSE_NO_EARLY_EXIT"),
+            superclusters=off("MEGAVERSE_NO_SUPERCLUSTERS"),
+            merge_tiles=not off("MEGAVERSE_MERGE_TILES"),
+        )
+
+
+UNCULLED = RenderMode(cluster_cull=False)
+
+
 def render_tables(scenario: Scenario, states, bucket: Optional[tuple] = None,
-                  cull: bool = True) -> dict:
+                  mode: Optional[RenderMode] = None) -> dict:
     """Everything `raycast_cuda.render_packed` takes for a batch of states, as
-    keyword arguments: cams, prims and (with `cull`) the bit-walk tables.
+    keyword arguments: cams, prims and the cull tables of the form that `mode`
+    selects (default: `RenderMode.from_env()`, i.e. the bit-walk unless the
+    environment says otherwise).
 
     bucket=(max_boxes, max_props): slice the per-env box/prop tables to the
     actual batch usage before building the table. Scenario capacities are
     worst-case, so rendering only the live prefix keeps the tables short.
     Correct because generation packs live rows first and padding rows are
     never activated at runtime (pos/scale/flags mutate; type never does)."""
+    if mode is None:
+        mode = RenderMode.from_env()
     cfg = scenario.cfg
     segments = cfg.prop_segments
     box_lo, box_hi, box_color = states.box_lo, states.box_hi, states.box_color
@@ -242,23 +280,44 @@ def render_tables(scenario: Scenario, states, bucket: Optional[tuple] = None,
     prims = RC.build_prim_table(cfg, box_lo, box_hi, box_color, props,
                                 states.agents, include_agent_rows=include_agents)
     ui_ind = float(cfg.params.get(C.P_USE_UI_REWARD_INDICATORS, 0.0)) > 0
-    if not cull:
-        return dict(cams=cams, prims=prims, ui_indicators=ui_ind)
-    # Bit-walk prologue: plain elementwise tensor code plus one small sort.
+    height, width = cfg.obs_height, cfg.obs_width
+    tables = dict(cams=cams, ui_indicators=ui_ind, merge_tiles=mode.merge_tiles)
+    if not mode.cluster_cull:
+        return dict(tables, prims=prims)
     prims, clusters = RC.build_clusters(prims)
-    clusters, _ = RC.build_superclusters(clusters)
-    prims = RC.pad_prims_to_clusters(prims, clusters)
-    # the per-row visibility mask of the hex scenarios is not ported yet
-    assert scenario.render_row_mask(states) is None
-    sclist, clbits, scdist, cdist = RC.cull_bits(
-        cams, clusters, cfg.obs_height, cfg.obs_width)
-    return dict(cams=cams, prims=prims.contiguous(), clusters=clusters.contiguous(),
-                sclist=sclist, clbits=clbits, scdist=scdist, cdist=cdist,
-                ui_indicators=ui_ind)
+    if mode.mode == "bits":
+        # Bit-walk prologue: plain elementwise tensor code plus one small sort.
+        clusters, _ = RC.build_superclusters(clusters)
+        prims = RC.pad_prims_to_clusters(prims, clusters)
+        # the per-row visibility mask of the hex scenarios is not ported yet
+        assert scenario.render_row_mask(states) is None
+        sclist, clbits, scdist, cdist = RC.cull_bits(cams, clusters, height, width)
+        tables.update(sclist=sclist, clbits=clbits, scdist=scdist, cdist=cdist)
+    elif not mode.cluster_sort:
+        pass                                    # clusters in table order
+    elif not (mode.tile_cull and mode.early_exit):
+        # per-agent front-to-back order (per-tile lists require the early-exit
+        # distance bounds)
+        order, dist = RC.sort_clusters(cams, clusters)
+        tables.update(order=order, dist=dist if mode.early_exit else None)
+    elif not mode.superclusters or clusters.shape[1] < 2 * RC.SUPER_K:
+        # per-tile frustum-culled front-to-back cluster lists: the kernel loop
+        # only ever visits clusters that can affect its 8x128 pixel tile
+        order, dist = RC.frustum_cull(cams, clusters, height, width)
+        tables.update(order=order, dist=dist)
+    else:
+        # two-level: per-tile lists over SUPERclusters; the sorted lists
+        # shrink by SUPER_K and the kernel prunes SUPER_K*CLUSTER_K rows per
+        # slab test. Only the cluster table is padded, not the prim table.
+        clusters, sclusters = RC.build_superclusters(clusters)
+        order, dist = RC.frustum_cull(cams, sclusters, height, width)
+        tables.update(order=order, dist=dist, sclusters=sclusters.contiguous())
+    return dict(tables, prims=prims.contiguous(), clusters=clusters.contiguous())
 
 
 def render_batch(scenario: Scenario, states, fmt: str = "rgb",
-                 bucket: Optional[tuple] = None, cull: bool = True) -> torch.Tensor:
+                 bucket: Optional[tuple] = None,
+                 mode: Optional[RenderMode] = None) -> torch.Tensor:
     """Observations for a BATCH of envs (post-reset frame for done envs,
     matching vector_env.cpp:94-107 draw ordering).
 
@@ -266,11 +325,11 @@ def render_batch(scenario: Scenario, states, fmt: str = "rgb",
     RGB in the low 24 bits, the on-device format. The whole env x agent camera
     batch renders in ONE kernel launch (the analogue of the reference's single
     batched Vulkan submission, v4r_env_renderer.cpp:338-355): the bit-walk form
-    by default, the unculled in-order form with cull=False. Every scenario
-    goes through the kernel on a CUDA device and through its plain PyTorch
-    version on the CPU."""
+    by default, any other form by `mode` (see RenderMode; every form gives the
+    same image). Every scenario goes through the kernel on a CUDA device and
+    through its plain PyTorch version on the CPU."""
     cfg = scenario.cfg
-    tables = render_tables(scenario, states, bucket=bucket, cull=cull)
+    tables = render_tables(scenario, states, bucket=bucket, mode=mode)
     packed = RC.render_packed(height=cfg.obs_height, width=cfg.obs_width, **tables)
     if fmt == "packed":
         return packed

@@ -513,32 +513,43 @@ def pack_planes(r, g, b) -> torch.Tensor:
 def render_table_packed(cams: torch.Tensor, prims: torch.Tensor, height: int,
                         width: int, ui_indicators: bool = False,
                         row_order: Optional[Sequence[int]] = None,
-                        row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        row_mask: Optional[torch.Tensor] = None,
+                        tiebreak: Optional[bool] = None,
+                        far_start: Optional[bool] = None) -> torch.Tensor:
     """Render cams [B,A,8] against prims [B,M,12] -> packed int32 [B,A,H,W].
 
     Default: rows in table order with the strict `t < best` carry starting at
     +INF (the unculled in-order form). With `row_order` (any sequence of row
-    indices) and/or `row_mask` (bool [B,A,T,M], T = H/8: which rows each 8-row
-    pixel tile may test) the carry is the bit-walk form's: it starts at the
-    far plane and breaks ties towards the lowest row index, which makes the
-    image independent of visiting order and equal to the in-order one.
+    indices) and/or `row_mask` (bool, broadcastable to [B,A,T,M], T = H/8:
+    which rows each 8-row pixel tile may test) the carry is the bit-walk
+    form's: it starts at the far plane and breaks ties towards the lowest row
+    index, which makes the image independent of visiting order and equal to
+    the in-order one. `tiebreak` and `far_start` override those two choices
+    one by one (the clustered in-order form masks rows but keeps the strict
+    carry from +INF; the sorted form without distance bounds breaks ties but
+    starts at +INF).
     """
     bsz, num_agents, _ = cams.shape
     num_prims = prims.shape[1]
     rays = make_rays(cams, height, width)
     shape = (bsz, num_agents, height, width)
     dev = cams.device
-    tiebreak = row_order is not None or row_mask is not None
+    if tiebreak is None:
+        tiebreak = row_order is not None or row_mask is not None
+    if far_start is None:
+        far_start = tiebreak
     if row_order is None:
         row_order = range(num_prims)
     zero = torch.zeros(shape, dtype=torch.float32, device=dev)
-    bt = torch.full(shape, FAR if tiebreak else INF, dtype=torch.float32, device=dev)
+    bt = torch.full(shape, FAR if far_start else INF, dtype=torch.float32, device=dev)
     bidx = torch.full(shape, num_prims, dtype=torch.int32, device=dev)
     bnx, bny, bnz, bc = zero, zero, zero, zero
     inf = torch.full(shape, INF, dtype=torch.float32, device=dev)
     if row_mask is not None:
         assert height % TILE_H == 0
-        pix_mask = row_mask.repeat_interleave(TILE_H, dim=2)  # [B,A,H,M]
+        tiles = height // TILE_H
+        pix_mask = row_mask.expand(bsz, num_agents, tiles, num_prims) \
+            .repeat_interleave(TILE_H, dim=2)                 # [B,A,H,M]
 
     # one transfer of the type column decides which routines each row needs
     types_host = prims[:, :, 0].detach().to("cpu").numpy().astype(np.int64)

@@ -2,11 +2,18 @@
 
 Counterpart of megaverse_tpu/ops/raycast_pallas.py. The Pallas program
 `_render_kernel` (launched from that module's `render_packed`) becomes the
-hand-written CUDA C++ kernels of csrc/render.cu, of which two forms are ported:
-B1 (unculled, rows in table order) and B2 (the bit-walk traversal the product
-path uses). What bounds them on an H100 is f32 arithmetic per visited table
-row, not memory traffic (a frame reads a few KB of tables per env and writes
-4 bytes per pixel); the design keeps each pixel's ray and closest-hit carry in
+hand-written CUDA C++ kernel template of csrc/render.cu, in all six forms of
+the reference:
+  B1  unculled, rows in table order;
+  B2  bit-walk (the traversal the product path uses by default);
+  B3  clustered, in table order (per-cluster slab test + block vote);
+  B4  B3 through sorted lists: per agent with or without distance bounds
+      (sort_clusters), or per tile (frustum_cull);
+  B5  two-level: per-tile lists over superclusters;
+  B6  any of the above with one thread block per (env, agent) frame.
+What bounds them on an H100 is f32 arithmetic per visited table row, not
+memory traffic (a frame reads a few KB of tables per env and writes 4 bytes
+per pixel); the design keeps each pixel's ray and closest-hit carry in
 registers and relies on the cull tables built here to visit few rows.
 
 The tables the kernel consumes are plain PyTorch, batched over envs:
@@ -15,7 +22,10 @@ The tables the kernel consumes are plain PyTorch, batched over envs:
      into 8-row clusters and 4-cluster superclusters with conservative AABBs
      and a homogeneity tag;
   3. cull_bits: per (env, agent, 8x128 pixel tile) a front-to-back list of
-     surviving superclusters, member bitmasks, and eye-distance lower bounds.
+     surviving superclusters, member bitmasks, and eye-distance lower bounds
+     (B2); sort_clusters: per-agent front-to-back cluster order (B4);
+     frustum_cull: per-tile front-to-back lists of clusters (B4) or of
+     superclusters (B5).
 
 Unified primitive row (12 f32):
   [0]     type: 0=aabb, 1=ellipsoid, 2=cylinder-y, 3=cone-y, 4=cone-y flipped,
@@ -75,9 +85,12 @@ PRIM_ROTBOX = R.PRIM_ROTBOX
 PRIM_ROTBOX_WALL = R.PRIM_ROTBOX_WALL
 TAG_CONE_MIXED = 8  # cluster tag: live rows are CONE / CONE_FLIPPED mixed
 
-# Launch counts: each wrapper adds one where it launches its kernel, nowhere
-# else.
-LAUNCHES = {"render_b1": 0, "render_b2": 0}
+FAR = float(C.CAMERA_FAR)
+
+# Launch counts, one per form: `render_packed` adds one where it launches the
+# kernel, nowhere else. A merged launch counts as B6 whatever it traverses.
+FORMS = ("render_b1", "render_b2", "render_b3", "render_b4", "render_b5", "render_b6")
+LAUNCHES = {name: 0 for name in FORMS}
 
 
 def reset_launch_counts() -> None:
@@ -94,8 +107,8 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # B2 == B1 bit for bit needs identical rounding in every row body: no FMA
-    # contraction, no fast-math (see csrc/render.cu).
+    # every form == B1 bit for bit needs identical rounding in every row body:
+    # no FMA contraction, no fast-math (see csrc/render.cu).
     "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
@@ -147,11 +160,8 @@ def load_library():
             return _lib
         lib = ctypes.CDLL(str(build_library()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mv_render_b1.restype = i
-        lib.mv_render_b1.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        lib.mv_render_b2.restype = i
-        lib.mv_render_b2.argtypes = [p, p, p, p, p, p, p, p, p,
-                                     i, i, i, i, i, i, i, p, p]
+        lib.mv_render.restype = i
+        lib.mv_render.argtypes = [i, i] + [p] * 13 + [i] * 9 + [p]
         lib.mv_render_blocks_per_tile.restype = i
         lib.mv_render_blocks_per_tile.argtypes = []
         lib.mv_render_const_count.restype = i
@@ -179,83 +189,146 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def select_form(clusters=None, order=None, dist=None, sclusters=None,
+                sclist=None, merge_tiles: bool = False):
+    """(form 1..5, launch-counter name) that `render_packed` takes for these
+    tables: the reference's choice (raycast_pallas.render_packed)."""
+    if clusters is None:
+        form = 1
+    elif sclist is not None:
+        form = 2
+    elif sclusters is not None:
+        form = 5
+    elif order is not None:
+        form = 4
+    else:
+        form = 3
+    return form, ("render_b6" if merge_tiles else FORMS[form - 1])
+
+
 def render_packed(cams: torch.Tensor, prims: torch.Tensor, height: int, width: int,
                   clusters: Optional[torch.Tensor] = None,
+                  order: Optional[torch.Tensor] = None,
+                  dist: Optional[torch.Tensor] = None,
+                  ui_indicators: bool = False,
+                  sclusters: Optional[torch.Tensor] = None,
+                  merge_tiles: bool = False,
                   sclist: Optional[torch.Tensor] = None,
                   clbits: Optional[torch.Tensor] = None,
                   scdist: Optional[torch.Tensor] = None,
                   cdist: Optional[torch.Tensor] = None,
-                  ui_indicators: bool = False,
                   visits: Optional[torch.Tensor] = None) -> torch.Tensor:
     """cams [B, A, 8] f32, prims [B, M, 12] f32 -> packed RGB int32 [B,A,H,W].
 
-    Without cull tables: form B1 (every row, in table order). With `clusters`
-    [B, G, 8], `sclist` int32 [B, A, T, S], `clbits` int32 [B, A, T, ceil(G/32)],
-    `scdist` f32 [B, A, T, S] and `cdist` f32 [B, A, G] (from build_clusters,
-    build_superclusters, pad_prims_to_clusters and cull_bits; T = H/8,
-    S = G/4, M == 8 G): form B2, the bit-walk. Both forms give the same image.
+    Every form gives the same image; the tables passed pick the traversal
+    (T = H/8, G clusters, S = G/4 superclusters):
+      B1  no cull tables: every row, in table order;
+      B2  `clusters` [B,G,8] + `sclist` int32 [B,A,T,S], `clbits` int32
+          [B,A,T,ceil(G/32)], `scdist` f32 [B,A,T,S], `cdist` f32 [B,A,G]
+          (build_clusters, build_superclusters, pad_prims_to_clusters,
+          cull_bits; M == 8 G): the bit-walk;
+      B3  `clusters` alone (M == 8 G): clusters in table order, rows run only
+          where some ray of the block can still find a closer hit;
+      B4  + `order` int32 [B,A,G] (any permutation of the clusters; ties
+          resolve to the lowest row, so the image does not depend on it), and
+          optionally `dist` f32 [B,A,G], ascending lower bounds on the hit
+          distance of the listed clusters (sort_clusters): the walk then ends
+          at the first entry beyond every ray's closest hit. `order.ndim == 4`
+          means per-tile lists [B,A,T,G] with their `dist` (frustum_cull);
+      B5  + `sclusters` [B,S,8]: `order`/`dist` [B,A,T,S] list superclusters
+          (frustum_cull on the supercluster table); `clusters` is padded to
+          4 S, `prims` need not be (8 G' rows for the G' <= G real clusters);
+      B6  `merge_tiles`: the same traversal, launched with one thread block
+          per (env, agent) frame instead of one per 2-row sub-block.
 
     CUDA tensors launch the kernel (built at first use) or raise; CPU tensors
-    take the plain PyTorch version. `visits` (measurement only, bit-walk form
-    on CUDA): an int32 tensor from `new_visits` that receives, per thread
-    block, the number of all-AABB and of other clusters the block ran."""
+    take the plain PyTorch version. `visits` (measurement only, forms B2-B5 on
+    CUDA): an int32 tensor from `new_visits` that receives, per sub-block,
+    the number of all-AABB and of other clusters whose rows it ran."""
+    tables = dict(clusters=clusters, order=order, dist=dist, sclusters=sclusters,
+                  merge_tiles=merge_tiles, sclist=sclist, clbits=clbits,
+                  scdist=scdist, cdist=cdist)
     if cams.device.type != "cuda":
-        return render_packed_plain(cams, prims, height, width, clusters=clusters,
-                                   sclist=sclist, clbits=clbits, scdist=scdist,
-                                   cdist=cdist, ui_indicators=ui_indicators)
+        return render_packed_plain(cams, prims, height, width,
+                                   ui_indicators=ui_indicators, **tables)
     if height % TILE_H != 0 or width != TILE_W:
         raise ValueError(f"render_packed needs H % {TILE_H} == 0 and W == {TILE_W}, "
                          f"got {(height, width)}")
     dev = cams.device
     bsz, num_agents = cams.shape[0], cams.shape[1]
     num_prims = prims.shape[1]
+    t = height // TILE_H
     f32, i32 = torch.float32, torch.int32
     _check("cams", cams, f32, (bsz, num_agents, 8), dev)
     _check("prims", prims, f32, (bsz, num_prims, ROW_W), dev)
+    form, counter = select_form(clusters, order, dist, sclusters, sclist, merge_tiles)
+    g = words = list_len = per_tile = 0
+    if form >= 2:
+        g = clusters.shape[1]
+        _check("clusters", clusters, f32, (bsz, g, 8), dev)
+        if num_prims % CLUSTER_K != 0 or num_prims > g * CLUSTER_K:
+            raise ValueError(f"clustered forms need M % {CLUSTER_K} == 0 and "
+                             f"M <= {CLUSTER_K}*G, got M={num_prims}, G={g}")
+    if form == 2:
+        if any(x is None for x in (clbits, scdist, cdist)) or order is not None \
+                or sclusters is not None:
+            raise ValueError("bit-walk form needs sclist, clbits, scdist and cdist "
+                             "and takes no order or sclusters")
+        if num_prims != g * CLUSTER_K or g % SUPER_K != 0:
+            raise ValueError(f"bit-walk form needs M == {CLUSTER_K}*G and "
+                             f"G % {SUPER_K} == 0, got M={num_prims}, G={g}")
+        s = g // SUPER_K
+        words = -(-g // 32)
+        _check("sclist", sclist, i32, (bsz, num_agents, t, s), dev)
+        _check("clbits", clbits, i32, (bsz, num_agents, t, words), dev)
+        _check("scdist", scdist, f32, (bsz, num_agents, t, s), dev)
+        _check("cdist", cdist, f32, (bsz, num_agents, g), dev)
+    elif form in (4, 5):
+        if form == 5:
+            s = sclusters.shape[1]
+            if g != s * SUPER_K or order is None or dist is None or order.dim() != 4:
+                raise ValueError("supercluster form needs G == 4*S and per-tile "
+                                 "order and dist over the superclusters")
+            _check("sclusters", sclusters, f32, (bsz, s, 8), dev)
+            list_len = s
+        else:
+            if num_prims != g * CLUSTER_K:
+                raise ValueError(f"sorted form needs M == {CLUSTER_K}*G, got "
+                                 f"M={num_prims}, G={g}")
+            list_len = g
+        per_tile = 1 if order.dim() == 4 else 0
+        if per_tile and dist is None:
+            raise ValueError("per-tile lists need their dist")
+        shape = (bsz, num_agents, t, list_len) if per_tile else (bsz, num_agents, list_len)
+        _check("order", order, i32, shape, dev)
+        if dist is not None:
+            _check("dist", dist, f32, shape, dev)
+    elif form == 3 and num_prims != g * CLUSTER_K:
+        raise ValueError(f"clustered form needs M == {CLUSTER_K}*G, got "
+                         f"M={num_prims}, G={g}")
     lib = load_library()
+    if visits is not None:
+        nblk = bsz * num_agents * t * lib.mv_render_blocks_per_tile()
+        _check("visits", visits, i32, (nblk, 2), dev)
     kc = _device_constants(height, width, str(dev))
     out = torch.empty((bsz, num_agents, height, width), dtype=i32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ui = 1 if ui_indicators else 0
+    ptr = lambda x: None if x is None else x.data_ptr()
     with torch.cuda.device(dev):
-        if clusters is None:
-            LAUNCHES["render_b1"] += 1
-            err = lib.mv_render_b1(cams.data_ptr(), prims.data_ptr(), kc.data_ptr(),
-                                   out.data_ptr(), bsz, num_agents, height,
-                                   num_prims, ui, stream)
-        else:
-            if any(x is None for x in (sclist, clbits, scdist, cdist)):
-                raise ValueError("bit-walk form needs sclist, clbits, scdist and cdist")
-            g = clusters.shape[1]
-            t = height // TILE_H
-            if num_prims != g * CLUSTER_K or g % SUPER_K != 0:
-                raise ValueError(f"bit-walk form needs M == {CLUSTER_K}*G and "
-                                 f"G % {SUPER_K} == 0, got M={num_prims}, G={g}")
-            s = g // SUPER_K
-            words = -(-g // 32)
-            _check("clusters", clusters, f32, (bsz, g, 8), dev)
-            _check("sclist", sclist, i32, (bsz, num_agents, t, s), dev)
-            _check("clbits", clbits, i32, (bsz, num_agents, t, words), dev)
-            _check("scdist", scdist, f32, (bsz, num_agents, t, s), dev)
-            _check("cdist", cdist, f32, (bsz, num_agents, g), dev)
-            if visits is not None:
-                nblk = bsz * num_agents * t * lib.mv_render_blocks_per_tile()
-                _check("visits", visits, i32, (nblk, 2), dev)
-            LAUNCHES["render_b2"] += 1
-            err = lib.mv_render_b2(cams.data_ptr(), prims.data_ptr(), clusters.data_ptr(),
-                                   sclist.data_ptr(), clbits.data_ptr(),
-                                   scdist.data_ptr(), cdist.data_ptr(), kc.data_ptr(),
-                                   out.data_ptr(), bsz, num_agents, height, num_prims,
-                                   g, words, ui,
-                                   None if visits is None else visits.data_ptr(),
-                                   stream)
+        LAUNCHES[counter] += 1
+        err = lib.mv_render(
+            form, 1 if merge_tiles else 0, ptr(cams), ptr(prims), ptr(clusters),
+            ptr(sclusters), ptr(order), ptr(dist), ptr(sclist), ptr(clbits),
+            ptr(scdist), ptr(cdist), ptr(kc), ptr(out), ptr(visits), bsz, num_agents,
+            height, num_prims, g, words, list_len, per_tile,
+            1 if ui_indicators else 0, stream)
     if err != 0:
         raise RuntimeError(f"render kernel launch failed: CUDA error {err}")
     return out
 
 
 def new_visits(cams: torch.Tensor, height: int) -> torch.Tensor:
-    """Zeroed int32 [blocks, 2] buffer for render_packed(visits=...)."""
+    """Zeroed int32 [sub-blocks, 2] buffer for render_packed(visits=...)."""
     lib = load_library()
     nblk = cams.shape[0] * cams.shape[1] * (height // TILE_H) * lib.mv_render_blocks_per_tile()
     return torch.zeros((nblk, 2), dtype=torch.int32, device=cams.device)
@@ -271,33 +344,89 @@ def cluster_row_mask(clbits: torch.Tensor, num_prims: int) -> torch.Tensor:
     return bits.repeat_interleave(CLUSTER_K, dim=-1)
 
 
-def render_packed_plain(cams, prims, height, width, clusters=None, sclist=None,
-                        clbits=None, scdist=None, cdist=None,
-                        ui_indicators=False) -> torch.Tensor:
+def _listed(order: torch.Tensor, keep: torch.Tensor, n: int) -> torch.Tensor:
+    """Lists `order` int [..., L] with a bool `keep` per entry -> bool [..., n]:
+    which of the n items each list keeps."""
+    mark = torch.zeros(order.shape[:-1] + (n + 1,), dtype=torch.bool, device=order.device)
+    idx = order.long()
+    ok = keep & (idx >= 0) & (idx < n)
+    mark.scatter_(-1, torch.where(ok, idx, torch.full_like(idx, n)), ok)
+    return mark[..., :n]
+
+
+def _global_order(order: torch.Tensor, key: torch.Tensor, n: int) -> list:
+    """One visiting order of n items for the whole batch: by the smallest
+    `key` any list gives them."""
+    best = torch.full((n + 1,), INF, dtype=torch.float32, device=order.device)
+    idx = order.long().clamp(0, n).reshape(-1)
+    best = best.scatter_reduce(0, idx, key.expand(order.shape).reshape(-1).to(torch.float32),
+                               reduce="amin")
+    return torch.argsort(best[:n], stable=True).tolist()
+
+
+def render_packed_plain(cams, prims, height, width, clusters=None, order=None,
+                        dist=None, ui_indicators=False, sclusters=None,
+                        merge_tiles=False, sclist=None, clbits=None, scdist=None,
+                        cdist=None) -> torch.Tensor:
     """Plain PyTorch version of `render_packed` (same signature, any device).
 
-    Without cull tables it is the in-order renderer. With them it visits each
-    tile's surviving clusters in the tile-independent order "superclusters by
-    their nearest bound over all tiles", with the bit-walk's far-plane start
-    and row-index tie-break; the depth-bound skips of the kernel (which only
-    ever drop rows that cannot win) are not emulated."""
-    if clusters is None:
+    Each form honours what its tables decide without a depth test, through
+    the table renderer of ops/raycast.py (one row at a time over the whole
+    batch, so one visiting order serves every env, agent and tile):
+      B1  in table order;
+      B2  each tile's surviving clusters, superclusters ordered by their
+          nearest bound over all tiles, far-plane start, row-index tie-break;
+      B3  in table order with the strict carry from +INF, dead clusters
+          (point box at +INF) skipped;
+      B4  the clusters each list names, ordered by their earliest place in
+          any list, row-index tie-break; without `dist` from +INF, with `dist`
+          from the far plane and only entries with dist <= far (the walk can
+          never reach the others);
+      B5  the same over superclusters, each expanding to its 32 rows;
+      B6  (`merge_tiles`) is a launch shape: the image of the form it wraps.
+    The depth-dependent skips of the kernel (which only ever drop rows that
+    cannot win) are not emulated."""
+    form, _ = select_form(clusters, order, dist, sclusters, sclist)
+    if form == 1:
         return R.render_table_packed(cams, prims, height, width, ui_indicators)
     num_prims = prims.shape[1]
     g = clusters.shape[1]
-    assert num_prims == g * CLUSTER_K and g % SUPER_K == 0, (num_prims, g)
-    row_mask = cluster_row_mask(clbits, num_prims)
-    # one global front-to-back-ish order: superclusters by min bound
-    key = torch.where(sclist < g // SUPER_K, scdist, torch.full_like(scdist, INF))
-    s = g // SUPER_K
-    best = torch.full((s,), INF, dtype=torch.float32, device=cams.device)
-    best = best.scatter_reduce(0, sclist.clamp(max=s - 1).reshape(-1).to(torch.long),
-                               key.reshape(-1), reduce="amin")
-    sc_order = torch.argsort(best, stable=True).tolist()
-    rows = [sc * SUPER_K * CLUSTER_K + j for sc in sc_order
-            for j in range(SUPER_K * CLUSTER_K)]
+    live = clusters[:, None, None, :, 0] < 1e29               # [B,1,1,G]
+    rows_of = lambda mask: mask.repeat_interleave(CLUSTER_K, dim=-1)[..., :num_prims]
+    if form == 2:
+        assert num_prims == g * CLUSTER_K and g % SUPER_K == 0, (num_prims, g)
+        s = g // SUPER_K
+        row_mask = cluster_row_mask(clbits, num_prims)
+        key = torch.where(sclist < s, scdist, torch.full_like(scdist, INF))
+        sc_order = _global_order(sclist, key, s)
+        rows = [sc * SUPER_K * CLUSTER_K + j for sc in sc_order
+                for j in range(SUPER_K * CLUSTER_K)]
+        return R.render_table_packed(cams, prims, height, width, ui_indicators,
+                                     row_order=rows, row_mask=row_mask)
+    if form == 3:
+        assert num_prims == g * CLUSTER_K, (num_prims, g)
+        return R.render_table_packed(cams, prims, height, width, ui_indicators,
+                                     row_mask=rows_of(live), tiebreak=False,
+                                     far_start=False)
+    # B4 / B5: lists of clusters or of superclusters
+    per_item = CLUSTER_K if form == 4 else SUPER_K * CLUSTER_K
+    n = g if form == 4 else sclusters.shape[1]
+    assert order.shape[-1] == n, (order.shape, n)
+    if order.dim() == 3:
+        order = order[:, :, None, :]                           # [B,A,1,L]
+        dist = None if dist is None else dist[:, :, None, :]
+    keep = torch.ones_like(order, dtype=torch.bool) if dist is None else dist <= FAR
+    pos = torch.arange(order.shape[-1], dtype=torch.float32, device=order.device)
+    items = _global_order(order, torch.where(keep, pos, torch.full_like(pos, INF)), n)
+    listed = _listed(order, keep, n)                           # [B,A,T|1,n]
+    if form == 5:
+        listed = listed.repeat_interleave(SUPER_K, dim=-1)     # per cluster
+    row_mask = rows_of(listed & live)
+    rows = [it * per_item + j for it in items for j in range(per_item)
+            if it * per_item + j < num_prims]
     return R.render_table_packed(cams, prims, height, width, ui_indicators,
-                                 row_order=rows, row_mask=row_mask)
+                                 row_order=rows, row_mask=row_mask, tiebreak=True,
+                                 far_start=dist is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -507,6 +636,54 @@ def _tile_survive(cams: torch.Tensor, clusters: torch.Tensor,
     slack = 0.02
     return ((tmax >= tmin - slack) & (tmax > -slack)
             & (tmin < C.CAMERA_FAR + slack))           # [B, A, T, G]
+
+
+def _eye_box_distance_sq(cams: torch.Tensor, clusters: torch.Tensor) -> torch.Tensor:
+    """Squared distance from each eye to the closest point of each box
+    [B, A, G]."""
+    eye = cams[:, :, None, :3]                       # [B, A, 1, 3]
+    lo = clusters[:, None, :, 0:3]                   # [B, 1, G, 3]
+    hi = clusters[:, None, :, 3:6]
+    d = torch.clamp(torch.maximum(lo - eye, eye - hi), min=0.0)
+    return (d * d).sum(dim=-1)
+
+
+def sort_clusters(cams: torch.Tensor, clusters: torch.Tensor):
+    """Front-to-back cluster visit order per agent: the clusters sorted by the
+    squared distance from the camera eye to the closest point of their AABB.
+    cams [B, A, 8], clusters [B, G, 8] -> (order int32 [B, A, G],
+    dist f32 [B, A, G]). Dead clusters (point box at +INF) sort last.
+
+    `dist[b, a, g]` is the eye distance to the closest point of cluster
+    `order[b, a, g]`'s AABB: a lower bound on any ray-hit parameter t from
+    that cluster (ray directions are unit length), ascending in g. It drives
+    the kernel's early ray termination: once a block's worst closest hit is
+    strictly below dist[g], clusters g.. cannot contribute."""
+    key = _eye_box_distance_sq(cams, clusters)
+    # stable: equal keys keep ascending cluster index, the (key, idx) order
+    skey, order = torch.sort(key, dim=-1, stable=True)
+    return order.to(torch.int32).contiguous(), torch.sqrt(skey).contiguous()
+
+
+def frustum_cull(cams: torch.Tensor, clusters: torch.Tensor, height: int, width: int,
+                 tile_h: int = TILE_H, tile_w: int = TILE_W):
+    """Per-TILE front-to-back cluster lists with conservative frustum culling.
+
+    cams [B, A, 8], clusters [B, G, 8] ->
+        (order int32 [B, A, T, G], dist f32 [B, A, T, G]), T = height/TILE_H.
+    `clusters` may equally be a supercluster table.
+
+    Survival is `_tile_survive`'s conservative interval slab test. Culled and
+    dead clusters get dist = sqrt(+INF) = 1e15 and sort last: the
+    kernel's early-exit condition (the largest depth starts at the far plane)
+    therefore never visits them. Survivors keep the eye-distance lower bound
+    used for early termination, sorted ascending (front-to-back)."""
+    survive = _tile_survive(cams, clusters, height, width, tile_h, tile_w)
+    key = _eye_box_distance_sq(cams, clusters)[:, :, None, :].expand(survive.shape)
+    key = torch.where(survive, key, torch.full((), INF, dtype=torch.float32,
+                                               device=cams.device))
+    skey, order = torch.sort(key, dim=-1, stable=True)
+    return order.to(torch.int32).contiguous(), torch.sqrt(skey).contiguous()
 
 
 def pack_bits(sv: torch.Tensor) -> torch.Tensor:

@@ -41,6 +41,8 @@ def _ensure_builtin() -> None:
         return
     _BUILTIN_LOADED = True
     from megaverse_tpu_torch.scenarios import (  # noqa: F401
+        collect,
         empty,
+        obstacles,
         tower_building,
     )

@@ -368,6 +368,8 @@ class Scenario:
     needs_terrain_grid: bool = False
     needs_object_grid: bool = False
     shaping_keys: Tuple[str, ...] = ()
+    # Dataclass of the scenario's extra per-env state (EnvState.scen), or None.
+    scen_cls: Optional[type] = None
 
     def __init__(self, num_agents: int = 1, params: Optional[Dict[str, float]] = None):
         self.num_agents = num_agents

@@ -9,6 +9,7 @@ Branch-free batched reimplementations of the reference ScenarioComponents:
   (prop index + 1) per voxel, and AgentState.carried holds the carried prop.
 - fall detection (teleport fallen agents back):
   scenarios/include/scenarios/component_fall_detection.hpp:16-62.
+- hiding collected reward diamonds (Collect, Obstacles).
 
 All tensors carry the env batch explicitly: agents [B, A, ...], props
 [B, P, ...], grids [B, X, Y, Z].
@@ -22,7 +23,8 @@ import torch
 
 from megaverse_tpu_torch import constants as C
 from megaverse_tpu_torch.ops import grid as G
-from megaverse_tpu_torch.types import EnvState, GridConfig, PROP_FLAG_SOLID
+from megaverse_tpu_torch.types import (
+    EnvState, GridConfig, PROP_FLAG_SOLID, PROP_FLAG_VISIBLE)
 
 CARRYING_SCALE = 0.78  # component_object_stacking.hpp:63
 
@@ -289,3 +291,18 @@ def fall_detection_step(cfg: GridConfig, state: EnvState,
         vvel=torch.where(fell, torch.zeros_like(agents.vvel), agents.vvel),
     )
     return state.replace(agents=agents), fell
+
+
+def hide_props(flags: torch.Tensor, top: torch.Tensor, hide: torch.Tensor) -> torch.Tensor:
+    """Clear the visible bit of prop rows `top` and `top + 1` (a diamond's two
+    cones) where `hide` holds. flags uint8 [B,P], top int [B,R], hide bool
+    [B,R]. Rows that do not hide are routed to a scratch column, so every
+    write that lands in the table stores the same value (no write race)."""
+    bsz, p = flags.shape
+    mark = torch.zeros((bsz, p + 1), dtype=torch.bool, device=flags.device)
+    top = top.long()
+    scratch = torch.full_like(top, p)
+    bidx = torch.arange(bsz, device=flags.device)[:, None]
+    mark[bidx, torch.where(hide, top, scratch)] = True
+    mark[bidx, torch.where(hide, top + 1, scratch)] = True
+    return torch.where(mark[:, :p], flags & (0xFF ^ PROP_FLAG_VISIBLE), flags)

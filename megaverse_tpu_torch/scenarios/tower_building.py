@@ -55,6 +55,7 @@ class TowerState(Tree):
 
 class TowerBuildingScenario(Scenario):
     name = "TowerBuilding"
+    scen_cls = TowerState
     max_boxes = 24
     prop_segments = ((C.PROP_BOX, MAX_BOXES),)
     needs_object_grid = True  # tower reward scans the object-slot grid

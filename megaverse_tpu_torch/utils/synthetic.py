@@ -98,3 +98,43 @@ def synthetic_cams(seed: int, prims: np.ndarray, num_agents: int = 4) -> np.ndar
             reward = (0.0, 0.7, -1.3, 0.2)[(a + b) % 4]
             cams[b, a] = [*eye, yaw, pitch, rng.uniform(0.0, 1.0), reward, 0.0]
     return cams
+
+
+def form_tables(cams, prims, height: int, width: int, seed: int = 0) -> dict:
+    """The tables of every culled form of the render kernel for one (cams
+    [B, A, 8], prims [B, M, 12]; torch tensors on one device): case -> keyword
+    arguments of `render_packed`. B4 appears four times: per-agent lists
+    without and with distance bounds, per-tile lists, and a permutation
+    shuffled from `seed` (the kernel must accept any visit order)."""
+    import torch
+
+    from megaverse_tpu_torch.ops import raycast_cuda as RC
+
+    p8, clusters = RC.build_clusters(prims)
+    p8, clusters = p8.contiguous(), clusters.contiguous()
+    g = clusters.shape[1]
+    cl4, sclusters = RC.build_superclusters(clusters)
+    cl4, sclusters = cl4.contiguous(), sclusters.contiguous()
+    p32 = RC.pad_prims_to_clusters(p8, cl4).contiguous()
+    sclist, clbits, scdist, cdist = RC.cull_bits(cams, cl4, height, width)
+    order_a, dist_a = RC.sort_clusters(cams, clusters)
+    order_t, dist_t = RC.frustum_cull(cams, clusters, height, width)
+    order_s, dist_s = RC.frustum_cull(cams, sclusters, height, width)
+    rng = np.random.default_rng(seed)
+    bsz, agents = cams.shape[0], cams.shape[1]
+    shuffled = torch.from_numpy(np.stack(
+        [rng.permutation(g) for _ in range(bsz * agents)]
+    ).reshape(bsz, agents, g).astype(np.int32)).to(cams.device)
+    return {
+        "b2": dict(prims=p32, clusters=cl4, sclist=sclist, clbits=clbits,
+                   scdist=scdist, cdist=cdist),
+        "b3": dict(prims=p8, clusters=clusters),
+        "b4_agent": dict(prims=p8, clusters=clusters, order=order_a),
+        "b4_agent_dist": dict(prims=p8, clusters=clusters, order=order_a, dist=dist_a),
+        "b4_tile": dict(prims=p8, clusters=clusters, order=order_t, dist=dist_t),
+        "b4_shuffled": dict(prims=p8, clusters=clusters, order=shuffled),
+        # the prim table stays at 8 G rows while the cluster table is padded
+        # to whole superclusters
+        "b5": dict(prims=p8, clusters=cl4, sclusters=sclusters, order=order_s,
+                   dist=dist_s),
+    }

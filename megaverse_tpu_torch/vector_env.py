@@ -21,6 +21,7 @@ device-to-host synchronisation inside a `step_many` chunk.
 from __future__ import annotations
 
 import os
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from megaverse_tpu_torch import constants as C
-from megaverse_tpu_torch.env import env_step, render_batch
+from megaverse_tpu_torch.env import RenderMode, env_step, render_batch
 from megaverse_tpu_torch.ops.raycast_cuda import unpack_rgb
 from megaverse_tpu_torch.scenarios import make_scenario
 from megaverse_tpu_torch.scenarios.base import Scenario
@@ -131,9 +132,10 @@ class VectorEnv:
         # far. Scenario capacities are worst-case, so rendering only the live
         # prefix keeps the primitive and cull tables short.
         self._bucket: Optional[tuple] = None
-        # MEGAVERSE_NO_CLUSTER_CULL=1 renders with the unculled in-order
-        # kernel form instead of the bit-walk (same image; for comparison).
-        self._cull = not os.environ.get("MEGAVERSE_NO_CLUSTER_CULL")
+        # Which form of the render kernel draws the observations: read from
+        # the environment (MEGAVERSE_RENDER_MODE, MEGAVERSE_NO_CLUSTER_CULL,
+        # ..., see env.RenderMode) once, here. Every form gives the same image.
+        self.render_mode = RenderMode.from_env()
         self._hw_boxes = 0
         segs = self.scenario.cfg.prop_segments
         self._hw_props = [0] * len(segs) if segs else 0
@@ -144,15 +146,17 @@ class VectorEnv:
         # Running OR of done flags since the last refill (device tensor).
         self._pending_dones: Optional[torch.Tensor] = None
         self._deferred_refill = None
-        # counters a caller can read: auto-resets noticed by the host and
-        # layouts uploaded into the buffer
+        # counters a caller can read: auto-resets noticed by the host,
+        # layouts uploaded into the buffer, and the host seconds spent waiting
+        # for generated layouts, stacking them and starting their upload
         self.num_refills = 0
         self.num_refilled_envs = 0
+        self.layout_seconds = 0.0
 
     # ---------------------------------------------------------------- renderer
     def _render(self, state: EnvState) -> torch.Tensor:
         return render_batch(self.scenario, state, fmt=self.obs_format,
-                            bucket=self._bucket, cull=self._cull)
+                            bucket=self._bucket, mode=self.render_mode)
 
     def _note_layout_counts(self, scenes) -> None:
         segments = self.scenario.cfg.prop_segments
@@ -259,10 +263,13 @@ class VectorEnv:
         """Generate + stack layouts for env_indices and ship them to the
         device, one buffer per leaf; `pad_to` repeats the first layout
         host-side up to a fixed row count so refills come in few shapes."""
+        t0 = time.perf_counter()
         scenes = [self._pop_scene(i) for i in env_indices]
         self._note_layout_counts(scenes)
-        return scene_to_device(stack_scenes(scenes, pad_to=pad_to), self.device,
-                               non_blocking=True)
+        batch = scene_to_device(stack_scenes(scenes, pad_to=pad_to), self.device,
+                                non_blocking=True)
+        self.layout_seconds += time.perf_counter() - t0
+        return batch
 
     def reset(self) -> torch.Tensor:
         all_idx = range(self.num_envs)

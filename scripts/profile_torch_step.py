@@ -15,6 +15,11 @@ Runs `VectorEnv.step_many` of megaverse_tpu_torch on one CUDA device under
     python scripts/profile_torch_step.py [--scenario TowerBuilding]
         [--num_envs 1024] [--num_agents 1] [--steps 16] [--trace out.json]
 
+`--scenario` takes any scenario of the port (Empty, TowerBuilding, Collect,
+Test, ObstaclesEasy/Medium/Hard, ObstaclesWalls/Steps/Lava). The render kernel
+form is the one the environment selects (MEGAVERSE_RENDER_MODE etc.; default:
+the bit-walk, B2); the line names it.
+
 Needs a GPU; exits non-zero without one. If the profiler reports no device
 time on this machine, the device shares are printed as "not measured".
 """
@@ -60,6 +65,7 @@ def main() -> int:
         return 2
 
     from megaverse_tpu_torch import VectorEnv
+    from megaverse_tpu_torch.ops import raycast_cuda as RC
     from torch.profiler import ProfilerActivity, profile
 
     smi = subprocess.run(
@@ -93,7 +99,9 @@ def main() -> int:
     launches = sum(k[1] for k in kernels)
     measured = busy_s > 0.0
     emit({"scenario": args.scenario, "envs": args.num_envs, "agents": args.num_agents,
-          "steps": args.steps, "gpu": smi,
+          "steps": args.steps, "gpu": smi, "bucket": env._bucket,
+          "render_mode": vars(env.render_mode),
+          "render_launches": {k: v for k, v in RC.LAUNCHES.items() if v},
           "ms_per_step": 1e3 * min(plain) / args.steps,
           "ms_per_step_profiled": 1e3 * wall / args.steps,
           "device_busy_share": busy_s / wall if measured else "not measured",
@@ -102,7 +110,7 @@ def main() -> int:
           "kernel_launches_per_step": launches / args.steps if measured else "not measured",
           "peak_device_memory_bytes": torch.cuda.max_memory_allocated()})
     for us, count, name in kernels[:10]:
-        emit({"kernel": name[:120], "launches_per_step": count / args.steps,
+        emit({"scenario": args.scenario, "kernel": name[:120], "launches_per_step": count / args.steps,
               "device_ms_per_step": 1e-3 * us / args.steps,
               "share_of_device_time": us * 1e-6 / busy_s})
     env.close()

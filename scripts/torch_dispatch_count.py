@@ -6,8 +6,11 @@ from Python and, on a GPU, one kernel launch. This script counts them with a
 prologue in front of the render kernel) per scenario. The counts do not depend
 on the batch size or on the device, so it runs on the CPU at a small batch:
 
-    python scripts/torch_dispatch_count.py
+    python scripts/torch_dispatch_count.py [Scenario[:agents] ...]
 
+Without arguments it counts TowerBuilding (1 and 4 agents), Empty, Collect
+and ObstaclesHard. `render_tables` is counted under the render mode that the
+environment selects (MEGAVERSE_RENDER_MODE etc., default: the bit-walk).
 Prints one JSON line per scenario. These are counts, not times.
 """
 
@@ -43,8 +46,14 @@ def count(fn) -> int:
     return mode.n
 
 
+DEFAULT = (("TowerBuilding", 1), ("TowerBuilding", 4), ("Empty", 1), ("Collect", 1),
+           ("ObstaclesHard", 1))
+
+
 def main() -> None:
-    for name, agents in (("TowerBuilding", 1), ("TowerBuilding", 4), ("Empty", 1)):
+    wanted = [(a.split(":")[0], int(a.split(":")[1]) if ":" in a else 1)
+              for a in sys.argv[1:]] or DEFAULT
+    for name, agents in wanted:
         env = VectorEnv(name, 8, agents, seed=0, render=False, device="cpu")
         env.reset()
         act = torch.from_numpy(

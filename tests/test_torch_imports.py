@@ -45,12 +45,15 @@ def test_expected_modules_exist():
     for want in ("constants", "types", "env", "vector_env", "convert", "ops.grid",
                  "ops.physics", "ops.raycast", "ops.raycast_cuda", "scenarios.base",
                  "scenarios.empty", "scenarios.components", "scenarios.tower_building",
-                 "utils.refrng", "utils.synthetic"):
+                 "scenarios.collect", "scenarios.obstacles", "scenarios.platforms",
+                 "utils.refrng", "utils.synthetic", "utils.perlin", "utils.refperlin",
+                 "utils.refsort"):
         assert f"megaverse_tpu_torch.{want}" in names, want
     assert os.path.exists(os.path.join(ROOT, "megaverse_tpu_torch", "csrc", "render.cu"))
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py"] + sorted(
+@pytest.mark.parametrize("path", ["chip_smoke.py", "scripts/torch_dispatch_count.py",
+                                  "scripts/profile_torch_step.py"] + sorted(
     os.path.join(dp, f)[len(ROOT) + 1:]
     for dp, _, fs in os.walk(os.path.join(ROOT, "megaverse_tpu_torch"))
     for f in fs if f.endswith(".py")))

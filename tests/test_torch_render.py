@@ -30,7 +30,7 @@ from megaverse_tpu.types import AgentState as JAgentState
 
 from megaverse_tpu_torch import VectorEnv as TVectorEnv
 from megaverse_tpu_torch import convert
-from megaverse_tpu_torch.env import render_batch, render_tables
+from megaverse_tpu_torch.env import UNCULLED, render_batch, render_tables
 from megaverse_tpu_torch.ops import raycast as TR
 from megaverse_tpu_torch.ops import raycast_cuda as TRC
 from megaverse_tpu_torch.scenarios import make_scenario as t_make_scenario
@@ -214,7 +214,7 @@ def test_ui_reward_indicators():
         env.reset()
         st = env.state.replace(last_reward=torch.tensor([[2.0], [-1.5], [0.0]]))
         imgs[on] = render_batch(env.scenario, st, fmt="packed").numpy()
-        unculled = render_batch(env.scenario, st, fmt="packed", cull=False).numpy()
+        unculled = render_batch(env.scenario, st, fmt="packed", mode=UNCULLED).numpy()
         np.testing.assert_array_equal(imgs[on], unculled)
         env.close()
 
@@ -278,7 +278,7 @@ def test_convert_roundtrip(tower):
 
 
 def test_prim_table_and_cams_match(tower):
-    tabs = render_tables(tower["tscn"], tower["tst"], cull=False)
+    tabs = render_tables(tower["tscn"], tower["tst"], mode=UNCULLED)
     np.testing.assert_allclose(tabs["prims"].numpy(), np.asarray(tower["jprims"]), atol=1e-6)
     np.testing.assert_allclose(tabs["cams"].numpy(), np.asarray(tower["jcams"]), atol=1e-6)
     assert tabs["prims"].shape[1] == 24 + 89 + 2 * 2
@@ -334,7 +334,7 @@ def test_plain_matches_jax_reference_on_tower(tower):
     got = render_batch(tower["tscn"], tower["tst"], fmt="packed").numpy()
     assert len(np.unique(got)) > 20
     assert_images_close(got, want)
-    unculled = render_batch(tower["tscn"], tower["tst"], fmt="packed", cull=False).numpy()
+    unculled = render_batch(tower["tscn"], tower["tst"], fmt="packed", mode=UNCULLED).numpy()
     np.testing.assert_array_equal(got, unculled)
 
 
