@@ -8,9 +8,11 @@ megaverse_tpu_torch/csrc with nvcc, then
      seconds);
   2. holds every form of the render kernel against form B1 and against its
      plain PyTorch version ON THE CARD: a synthetic table with live rows of
-     every primitive type (reward indicators off and on), and the states of
-     Collect (64 envs x 2 agents), TowerBuilding (64 x 4) and Empty (64 x 2, a
-     table shorter than 8 clusters) after 20 random steps. B1 (unculled) vs
+     every primitive type (reward indicators off and on), a synthetic table
+     whose hits lie 90-125 m out and whose rays graze box faces (where the
+     0.01 slack of the distance bounds and box votes is tightest), and the
+     states of Collect (64 envs x 2 agents), TowerBuilding (64 x 4) and
+     Empty (64 x 2, a table shorter than 8 clusters) after 20 random steps. B1 (unculled) vs
      plain: at most 1 per colour channel on fewer than 1e-4 of the pixels (the
      elementary functions of the two differ in the last place at most). B2
      (bit-walk), B3 (clustered), B4 (per-agent lists without and with distance
@@ -35,7 +37,10 @@ megaverse_tpu_torch/csrc with nvcc, then
      end on (comparison launches are not counted);
   4. times every form and its plain version at the Collect 1024 x 1 shape (B1
      and B2 also at the TowerBuilding 1024 x 1 shape) and prints the `kernels`
-     line (times, launches, largest error, roofline bound).
+     line (times, launches, largest error, roofline bound, clusters run per
+     pixel).
+
+`--phase kernels` stops after step 2.
 
 Any failed check raises and the script exits non-zero. The last line of the
 output is {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -222,7 +227,8 @@ class Smoke:
     def kernels_vs_plain(self) -> None:
         from megaverse_tpu_torch import VectorEnv
         from megaverse_tpu_torch.env import UNCULLED, RenderMode, render_tables
-        from megaverse_tpu_torch.utils.synthetic import synthetic_cams, synthetic_prims
+        from megaverse_tpu_torch.utils.synthetic import (synthetic_cams, synthetic_far,
+                                                         synthetic_prims)
 
         prims_np = synthetic_prims(seed=7, num_envs=8)
         cams_np = synthetic_cams(seed=7, prims=prims_np, num_agents=4)
@@ -230,6 +236,9 @@ class Smoke:
         cams = torch.from_numpy(cams_np).to(self.dev)
         for ui in (False, True):
             self.compare(f"synthetic_all_types_ui={int(ui)}", cams, prims, 72, ui)
+        prims_np, cams_np = synthetic_far(seed=7, num_envs=16, num_agents=4)
+        self.compare("synthetic_far_plane_grazing", torch.from_numpy(cams_np).to(self.dev),
+                     torch.from_numpy(prims_np).to(self.dev), 72, False)
 
         rng = np.random.default_rng(1)
         for name, envs, agents in (("Collect", 64, 2), ("TowerBuilding", 64, 4),
@@ -424,8 +433,9 @@ class Smoke:
                 cams, height=height, width=128, ui_indicators=ui, **tabs), 1, warm=False)
             # Roofline bound from THIS run's inputs. Bytes: every input read
             # once, the output written once. Operations: the rows each pixel
-            # visits: all of them for B1, for the others what the kernel
-            # itself counted per sub-block (`visits`).
+            # visits: all live rows for B1, for the others what the kernel
+            # itself counted per pixel row (`visits`: the clusters whose rows
+            # ran for the row's 128 pixels).
             nb = nbytes([cams, *tabs.values()]) + pixels * 4
             if case == "b1":
                 ops = (agents * height * 128 * (n_aabb * OPS_ROW_AABB + n_other * OPS_ROW_OTHER
@@ -436,14 +446,13 @@ class Smoke:
                 RC.render_packed(cams, height=height, width=128, ui_indicators=ui,
                                  visits=visits, **tabs)
                 torch.cuda.synchronize()
-                v = visits.sum(dim=0).tolist()          # clusters run: [aabb, other]
-                px_per_block = pixels // visits.shape[0]
-                ops = (px_per_block * 8 * (v[0] * OPS_ROW_AABB + v[1] * OPS_ROW_OTHER)
+                v = visits.sum(dim=(0, 1, 2)).tolist()   # clusters run: [aabb, other]
+                ops = (128 * 8 * (v[0] * OPS_ROW_AABB + v[1] * OPS_ROW_OTHER)
                        + pixels * OPS_PIXEL_FIXED)
-                mean_clusters = sum(v) / visits.shape[0]
+                mean_clusters = sum(v) / (bsz * agents * height)
             b_ms, by = bound(nb, ops)
             out[case] = dict(ms=ms, plain_ms=plain_ms, bytes=nb, ops=ops, bound_ms=b_ms,
-                             bound_by=by, mean_clusters_run_per_block=mean_clusters)
+                             bound_by=by, mean_clusters_run_per_pixel=mean_clusters)
         prologue = {
             "cull_bits": lambda: RC.cull_bits(cams, cases["b2"]["clusters"], height, 128),
             "sort_clusters": lambda: RC.sort_clusters(cams, cases["b3"]["clusters"]),
@@ -481,7 +490,8 @@ class Smoke:
                    "max_abs_err": self.max_err[name], "ms": c["ms"],
                    "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                    "bound_by": c["bound_by"], "library_ms": None,
-                   "shape": "Collect 1024x1"}
+                   "shape": "Collect 1024x1",
+                   "clusters_run_per_pixel": c["mean_clusters_run_per_pixel"]}
             if case in at_tower:
                 t = at_tower[case]
                 row.update(ms_towerbuilding=t["ms"], plain_ms_towerbuilding=t["plain_ms"],

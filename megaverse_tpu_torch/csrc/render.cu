@@ -3,13 +3,14 @@
 // Replaces the Pallas TPU kernel `_render_kernel` of
 // megaverse_tpu/ops/raycast_pallas.py (launched from its `render_packed`).
 // Its six forms are one kernel template here, `render_kernel<FORM, MERGED>`:
-//   B1  unculled, in table order (loop over all M rows, generic row test,
-//       strict `t < best` carry, best starts at +INF);
+//   B1  unculled, in table order (every live row, strict `t < best` carry,
+//       best starts at +INF); the table streams through shared memory;
 //   B2  bit-walk: per 8x128 pixel tile, walk the tile's front-to-back
 //       supercluster list, test member bits, skip members and stop the walk on
-//       the depth bound, run 8-row clusters through the body chosen by the
-//       cluster tag, tie-break carry on the row index, depth bound refreshed
-//       lazily by a block reduction;
+//       the depth bound, slab-test each candidate cluster's box against the
+//       pixels' depths (block vote), run its 8 rows from shared memory,
+//       tie-break carry on the row index, depth bound refreshed after each
+//       list entry that ran rows;
 //   B3  clustered, in table order: every cluster's box is slab-tested per
 //       pixel against the current depths, a block-wide vote decides whether
 //       its rows run;
@@ -17,34 +18,43 @@
 //       early on the list's distance bounds;
 //   B5  two-level: per-tile lists over superclusters, members re-tested;
 //   B6  any of B1-B5 with ONE block per (env, agent) frame that loops the
-//       frame's tiles (MERGED = true) instead of one block per sub-block.
+//       frame's sub-blocks (MERGED = true) instead of one block per sub-block.
 // All write packed RGB int32 [B, A, H, 128].
 //
 // What bounds it on this card: arithmetic, not memory. A frame reads a few KB
 // of tables per env and writes 4 bytes per pixel, while every visited table
-// row costs some 30-150 f32 operations per pixel. The design therefore spends
-// nothing on data movement tricks: one thread owns one pixel, its ray and its
-// closest-hit carry live in registers, and every table value is a
-// block-uniform load that the read-only cache broadcasts. What it does about
-// the arithmetic is the culling of B2-B5: the tables cut the rows a tile
-// visits from M to the handful in front of the nearest occluder.
+// row costs some 30-150 f32 operations per pixel. What the design does about
+// it:
+//  - culling (B2-B5): the tables and the block votes cut the rows a pixel
+//    visits from M to the handful in front of the nearest occluder;
+//  - two pixels per thread (B1, B2): a row read once from shared memory, its
+//    type switch and the walk's control serve two rays;
+//  - asynchronous staging (B1, B2): one thread hands the next rows to the
+//    Tensor Memory Accelerator (cp.async.bulk, completion on an mbarrier)
+//    while the block computes on the current ones, and rows are read as three
+//    16-byte vectors from shared memory instead of a dozen scalar loads.
 //
-// Block shape: 256 threads = 2 pixel rows x 128 columns; four sub-blocks share
-// one 8-row tile (and its cull lists). The reference decides per 8-row tile
-// whether any ray can reach a cluster; here the vote (__syncthreads_or) and
-// the depth bound (block_max) are per 2-row sub-block, a subset of that tile:
-// fewer rows run, the image is the same (a skipped row can never win). All
-// loop conditions depend only on table values, on that vote and on that
-// maximum, which every thread receives, so no thread leaves a loop alone.
+// Block shape: 256 threads = 2 lanes of 128 columns. With P pixels per thread
+// (`pixels_per_thread<FORM>`: 2 for B1 and B2, 1 for B3-B5) a block covers
+// 2 P pixel rows of an 8-row tile (a "sub-block"), so a tile has 8 / (2 P)
+// sub-blocks. The reference decides per 8-row tile whether any ray
+// can reach a cluster; here the vote (__syncthreads_or) and the depth bound
+// (block_max) are per sub-block, a subset of that tile: fewer rows run, the
+// image is the same (a skipped row can never win). All loop conditions depend
+// only on table values, on that vote and on that maximum, which every thread
+// receives, so no thread leaves a loop alone.
 //
 // Exactness: every form must produce the image of B1 bit for bit, which rests
-// on every row body computing a bit-equal `t` for the same row. The bodies
-// share the intersection routines below, and the file MUST be compiled with
+// on every row computing a bit-equal `t` for the same row. All forms run a row
+// through the same `row_dispatch`, and the file MUST be compiled with
 // -fmad=false (nvcc would otherwise contract a*b-c into FMA differently per
 // inlined call site) and WITHOUT --use_fast_math. Only rsqrtf, sinf, cosf,
-// sqrtf and IEEE division are used; never __sinf/__cosf/__fdividef.
+// sqrtf and IEEE division are used; never __sinf/__cosf/__fdividef. Dead rows
+// (type < 0) are skipped: their t is +INF, which never beats nor, in an image,
+// differs from a miss.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -54,14 +64,20 @@ constexpr float FAR_T = 120.0f;
 constexpr float SLACK = 0.01f;
 constexpr int TILE_H = 8;
 constexpr int TILE_W = 128;
-constexpr int SUB_ROWS = 2;                  // pixel rows per block
-constexpr int SUBS = TILE_H / SUB_ROWS;      // blocks per tile
-constexpr int NTHREADS = SUB_ROWS * TILE_W;
+constexpr int LANES = 2;                     // pixel rows of one pass of the threads
+constexpr int NTHREADS = LANES * TILE_W;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int ROW_W = 12;                    // f32 per primitive row
 constexpr int CLUSTER_K = 8;
 constexpr int SUPER_K = 4;
 constexpr int CODE_DIRECT = 3;
+constexpr int CLUSTER_FLOATS = CLUSTER_K * ROW_W;   // one cluster's rows: 384 B
+constexpr int BOX_FLOATS = 8;                       // one cluster box: 32 B
+constexpr int SLOT_FLOATS = CLUSTER_FLOATS + BOX_FLOATS;
+constexpr int B2_SLOTS = 3;                  // staged clusters (ring)
+constexpr int B1_CHUNK = 128;                // rows per staged chunk of B1
+constexpr int B1_STAGES = 2;
+constexpr int NBARS = 4;                     // >= B2_SLOTS, B1_STAGES
 
 // Indices into the constant table built by ops/raycast.py render_constants().
 enum {
@@ -340,37 +356,44 @@ __device__ __forceinline__ void prim_rotbox_wall(const Ray& r, float cx0,
   h.nz = -syj * nlx + cyj * nlz;
 }
 
-// Generic row test: one intersection routine chosen by the row's type (a
-// block-uniform branch). Dead rows (type < 0) miss.
-__device__ __forceinline__ void row_hit(const Ray& r, const float* __restrict__ p,
-                                        Hit& h) {
-  int ptype = (int)__ldg(p + 0);
-  float a0 = __ldg(p + 1), a1 = __ldg(p + 2), a2 = __ldg(p + 3);
-  float b0 = __ldg(p + 4), b1 = __ldg(p + 5), b2 = __ldg(p + 6);
-  h.c = __ldg(p + 7);
-  int k = ptype < 0 ? 0 : (ptype > 7 ? 7 : ptype);
-  switch (k) {
-    case 0: {
-      int code;
-      h.t = prim_aabb(r, a0, a1, a2, b0, b1, b2, code);
-      slab_normal(code, r.dx, r.dy, r.dz, h.nx, h.ny, h.nz);
-      break;
-    }
-    case 1: prim_ellipsoid(r, a0, a1, a2, b0, b1, b2, h); break;
-    case 2: prim_cylinder(r, a0, a1, a2, b0, b1, b2, h); break;
-    case 3: prim_cone(r, a0, a1, a2, b0, b1, b2, 1.0f, h); break;
-    case 4: prim_cone(r, a0, a1, a2, b0, b1, b2, -1.0f, h); break;
-    case 5: prim_eyebox(r, a0, a1, a2, b0, b1, h); break;
-    case 6:
-      prim_rotbox(r, a0, a1, a2, b1, b2, __ldg(p + 8), __ldg(p + 9),
-                  __ldg(p + 10), h);
-      break;
-    default:
-      prim_rotbox_wall(r, a0, a1, a2, b1, b2, __ldg(p + 8), __ldg(p + 9),
-                       __ldg(p + 10), h.c, __ldg(p + 11), h);
-      break;
+// A primitive row (layout in ops/raycast_cuda.py): three 16-byte vectors.
+struct Row {
+  float type, a0, a1, a2;
+  float b0, b1, b2, col;
+  float c0, c1, c2, col2;
+};
+
+// Rows and boxes start at multiples of 16 bytes (48-byte rows, 32-byte boxes,
+// tables checked for 16-byte alignment by the wrapper). SHARED: `p` points
+// into shared memory; otherwise into the global table, read through the
+// read-only path.
+template <bool SHARED>
+__device__ __forceinline__ Row load_row(const float* p) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  float4 x, y, z;
+  if (SHARED) {
+    x = q[0]; y = q[1]; z = q[2];
+  } else {
+    x = __ldg(q); y = __ldg(q + 1); z = __ldg(q + 2);
   }
-  if (ptype < 0) h.t = INF_T;
+  return Row{x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w, z.x, z.y, z.z, z.w};
+}
+
+// A cluster or supercluster box: lo xyz, hi xyz, homogeneity tag.
+struct Box {
+  float lx, ly, lz, hx, hy, hz, tag;
+};
+
+template <bool SHARED>
+__device__ __forceinline__ Box load_box(const float* p) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  float4 x, y;
+  if (SHARED) {
+    x = q[0]; y = q[1];
+  } else {
+    x = __ldg(q); y = __ldg(q + 1);
+  }
+  return Box{x.x, x.y, x.z, x.w, y.x, y.y, y.z};
 }
 
 // Carry updates. TIE=false: strict `t < best` (in-order traversal). TIE=true:
@@ -395,90 +418,57 @@ __device__ __forceinline__ void take_hit(Carry& c, const Hit& h, int i) {
   }
 }
 
-// Homogeneous row bodies (all live rows of the cluster share a type).
-template <bool TIE>
-__device__ __forceinline__ void body_aabb(const Ray& r, const float* __restrict__ p,
-                                          int i, Carry& c) {
-  // Deferred-normal variant: only (t, face-axis code) enter the carry; the
-  // normal is rebuilt once in the epilogue.
-  bool live = __ldg(p + 0) >= 0.0f;
-  int code;
-  float t = prim_aabb(r, __ldg(p + 1), __ldg(p + 2), __ldg(p + 3), __ldg(p + 4),
-                      __ldg(p + 5), __ldg(p + 6), code);
-  t = live ? t : INF_T;
-  if (closer_than<TIE>(c, t, i)) {
-    c.t = t;
-    c.idx = i;
-    c.code = code;
-    c.c = __ldg(p + 7);
+// One live row (type >= 0) against the P rays of this thread. The switch is
+// on a value every thread of the block reads alike, so it never diverges.
+// AABB rows carry only (t, face-axis code): the normal is rebuilt once in the
+// epilogue by the same slab_normal a direct normal would come from.
+template <bool TIE, int P>
+__device__ __forceinline__ void row_dispatch(const Ray (&r)[P], const Row& w, int i,
+                                             Carry (&c)[P]) {
+  const int k = (int)w.type;
+  if (k == 0) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      int code;
+      float t = prim_aabb(r[p], w.a0, w.a1, w.a2, w.b0, w.b1, w.b2, code);
+      if (closer_than<TIE>(c[p], t, i)) {
+        c[p].t = t;
+        c[p].idx = i;
+        c[p].code = code;
+        c[p].c = w.col;
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    Hit h;
+    h.c = w.col;
+    switch (k) {
+      case 1: prim_ellipsoid(r[p], w.a0, w.a1, w.a2, w.b0, w.b1, w.b2, h); break;
+      case 2: prim_cylinder(r[p], w.a0, w.a1, w.a2, w.b0, w.b1, w.b2, h); break;
+      case 3: prim_cone(r[p], w.a0, w.a1, w.a2, w.b0, w.b1, w.b2, 1.0f, h); break;
+      case 4: prim_cone(r[p], w.a0, w.a1, w.a2, w.b0, w.b1, w.b2, -1.0f, h); break;
+      case 5: prim_eyebox(r[p], w.a0, w.a1, w.a2, w.b0, w.b1, h); break;
+      case 6: prim_rotbox(r[p], w.a0, w.a1, w.a2, w.b1, w.b2, w.c0, w.c1, w.c2, h); break;
+      default:
+        prim_rotbox_wall(r[p], w.a0, w.a1, w.a2, w.b1, w.b2, w.c0, w.c1, w.c2, w.col,
+                         w.col2, h);
+        break;
+    }
+    take_hit<TIE>(c[p], h, i);
   }
 }
 
-template <bool TIE>
-__device__ __forceinline__ void body_rotbox(const Ray& r, const float* __restrict__ p,
-                                            int i, Carry& c) {
-  Hit h;
-  h.c = __ldg(p + 7);
-  prim_rotbox(r, __ldg(p + 1), __ldg(p + 2), __ldg(p + 3), __ldg(p + 5),
-              __ldg(p + 6), __ldg(p + 8), __ldg(p + 9), __ldg(p + 10), h);
-  if (!(__ldg(p + 0) >= 0.0f)) h.t = INF_T;
-  take_hit<TIE>(c, h, i);
-}
-
-template <bool TIE>
-__device__ __forceinline__ void body_wall(const Ray& r, const float* __restrict__ p,
-                                          int i, Carry& c) {
-  Hit h;
-  prim_rotbox_wall(r, __ldg(p + 1), __ldg(p + 2), __ldg(p + 3), __ldg(p + 5),
-                   __ldg(p + 6), __ldg(p + 8), __ldg(p + 9), __ldg(p + 10),
-                   __ldg(p + 7), __ldg(p + 11), h);
-  if (!(__ldg(p + 0) >= 0.0f)) h.t = INF_T;
-  take_hit<TIE>(c, h, i);
-}
-
-template <bool TIE>
-__device__ __forceinline__ void body_ellipsoid(const Ray& r, const float* __restrict__ p,
-                                               int i, Carry& c) {
-  Hit h;
-  h.c = __ldg(p + 7);
-  prim_ellipsoid(r, __ldg(p + 1), __ldg(p + 2), __ldg(p + 3), __ldg(p + 4),
-                 __ldg(p + 5), __ldg(p + 6), h);
-  if (!(__ldg(p + 0) >= 0.0f)) h.t = INF_T;
-  take_hit<TIE>(c, h, i);
-}
-
-template <bool TIE>
-__device__ __forceinline__ void body_cylinder(const Ray& r, const float* __restrict__ p,
-                                              int i, Carry& c) {
-  Hit h;
-  h.c = __ldg(p + 7);
-  prim_cylinder(r, __ldg(p + 1), __ldg(p + 2), __ldg(p + 3), __ldg(p + 4),
-                __ldg(p + 5), __ldg(p + 6), h);
-  if (!(__ldg(p + 0) >= 0.0f)) h.t = INF_T;
-  take_hit<TIE>(c, h, i);
-}
-
-template <bool TIE>
-__device__ __forceinline__ void body_cone(const Ray& r, const float* __restrict__ p,
-                                          int i, Carry& c) {
-  // The flip sign comes from the row type, so CONE / CONE_FLIPPED mixed
-  // clusters (diamond halves) share one body.
-  float ptype = __ldg(p + 0);
-  float s = (ptype == 3.0f) ? 1.0f : -1.0f;
-  Hit h;
-  h.c = __ldg(p + 7);
-  prim_cone(r, __ldg(p + 1), __ldg(p + 2), __ldg(p + 3), __ldg(p + 4),
-            __ldg(p + 5), __ldg(p + 6), s, h);
-  if (!(ptype >= 0.0f)) h.t = INF_T;
-  take_hit<TIE>(c, h, i);
-}
-
-template <bool TIE>
-__device__ __forceinline__ void body_generic(const Ray& r, const float* __restrict__ p,
-                                             int i, Carry& c) {
-  Hit h;
-  row_hit(r, p, h);
-  take_hit<TIE>(c, h, i);
+// The 8 rows of one cluster, starting at row index `base`.
+template <bool TIE, int P, bool SHARED>
+__device__ __forceinline__ void run_cluster(const Ray (&r)[P], const float* rows, int base,
+                                            Carry (&c)[P]) {
+#pragma unroll 1
+  for (int j = 0; j < CLUSTER_K; ++j) {
+    const Row w = load_row<SHARED>(rows + j * ROW_W);
+    if (w.type >= 0.0f) row_dispatch<TIE, P>(r, w, base + j, c);
+  }
 }
 
 // Maximum of v over the block, returned to every thread. Every thread of the
@@ -496,31 +486,78 @@ __device__ __forceinline__ float block_max(float v, float* smem) {
   return m;
 }
 
+template <int P>
+__device__ __forceinline__ float max_depth(const Carry (&c)[P]) {
+  float m = c[0].t;
+#pragma unroll
+  for (int p = 1; p < P; ++p) m = fmaxf(m, c[p].t);
+  return m;
+}
+
+// Can this pixel's ray still find a hit closer than `bt` inside the box? No
+// `tmin > near` term: a camera inside the box must still process it. SLACK
+// absorbs the rounding between these slab products and the per-type
+// intersection routines (a quadric's hit can land an ulp before the box
+// entry); it assumes unit ray directions. A dead box (point at +INF) gives
+// tmin = +inf or tmax = -inf and never passes. ops/raycast_cuda.py
+// box_reachable_plain is its plain version.
+__device__ __forceinline__ bool box_reachable(const Ray& r, const Box& b, float bt) {
+  float t1x = b.lx * r.ix - r.exix;
+  float t2x = b.hx * r.ix - r.exix;
+  float t1y = b.ly * r.iy - r.eyiy;
+  float t2y = b.hy * r.iy - r.eyiy;
+  float t1z = b.lz * r.iz - r.eziz;
+  float t2z = b.hz * r.iz - r.eziz;
+  float tmin = fmaxf(fminf(t1x, t2x), fmaxf(fminf(t1y, t2y), fminf(t1z, t2z)));
+  float tmax = fminf(fmaxf(t1x, t2x), fminf(fmaxf(t1y, t2y), fmaxf(t1z, t2z)));
+  return (tmax >= tmin) && (tmax > 0.0f) && (tmin < bt + SLACK);
+}
+
+// Can any of this thread's rays reach the box? (The vote's predicate.)
+template <int P>
+__device__ __forceinline__ bool any_reachable(const Ray (&r)[P], const Box& b,
+                                              const Carry (&c)[P]) {
+  bool any = false;
+#pragma unroll
+  for (int p = 0; p < P; ++p) any |= box_reachable(r[p], b, c[p].t);
+  return any;
+}
+
 struct Pixel {
-  int b, a, tile, x, y;   // env, agent, tile row, pixel column, pixel row
+  int b, a, x, y;         // env, agent, pixel column, pixel row
   float uu, vv;           // normalized device coords of the pixel centre
 };
 
-// `blk` numbers the 2-row sub-blocks of the whole batch: sub-block fastest,
-// then tile row, agent, env. It is blockIdx.x for the tiled launch and runs
-// over one frame's sub-blocks inside a block of the merged launch.
-__device__ __forceinline__ Pixel locate(int blk, int num_agents, int tiles,
-                                        int height) {
+// The camera of one frame, shared by every ray of a block.
+struct Cam {
+  float ex, ey, ez, cy, sy, cp, sp;
+};
+
+__device__ __forceinline__ Cam load_cam(const float* __restrict__ cam) {
+  Cam k;
+  k.ex = __ldg(cam + 0);
+  k.ey = __ldg(cam + 1);
+  k.ez = __ldg(cam + 2);
+  float yaw = __ldg(cam + 3), pitch = __ldg(cam + 4);
+  k.cy = cosf(yaw);
+  k.sy = sinf(yaw);
+  k.cp = cosf(pitch);
+  k.sp = sinf(pitch);
+  return k;
+}
+
+__device__ __forceinline__ Pixel make_pixel(int b, int a, int y, int height) {
   Pixel px;
-  int sub = blk % SUBS;
-  blk /= SUBS;
-  px.tile = blk % tiles;
-  blk /= tiles;
-  px.a = blk % num_agents;
-  px.b = blk / num_agents;
+  px.b = b;
+  px.a = a;
   px.x = threadIdx.x & (TILE_W - 1);
-  px.y = px.tile * TILE_H + sub * SUB_ROWS + (threadIdx.x >> 7);
+  px.y = y;
   px.uu = ((float)px.x + 0.5f) / (float)TILE_W * 2.0f - 1.0f;
   px.vv = 1.0f - ((float)px.y + 0.5f) / (float)height * 2.0f;
   return px;
 }
 
-__device__ __forceinline__ Ray make_ray(const Pixel& px, const float* __restrict__ cam,
+__device__ __forceinline__ Ray make_ray(const Pixel& px, const Cam& k,
                                         const float* __restrict__ kc) {
   float u = px.uu * __ldg(kc + K_TAN_H);
   float v = px.vv * __ldg(kc + K_TAN_V);
@@ -528,19 +565,16 @@ __device__ __forceinline__ Ray make_ray(const Pixel& px, const float* __restrict
   float dx0 = u * inv_len;
   float dy0 = v * inv_len;
   float dz0 = -inv_len;
-  float yaw = __ldg(cam + 3), pitch = __ldg(cam + 4);
-  float cy = cosf(yaw), sy = sinf(yaw);
-  float cp = cosf(pitch), sp = sinf(pitch);
   // world dir = R_y(yaw) @ R_x(pitch) @ d_cam
-  float y1 = cp * dy0 - sp * dz0;
-  float z1 = sp * dy0 + cp * dz0;
+  float y1 = k.cp * dy0 - k.sp * dz0;
+  float z1 = k.sp * dy0 + k.cp * dz0;
   Ray r;
-  r.ex = __ldg(cam + 0);
-  r.ey = __ldg(cam + 1);
-  r.ez = __ldg(cam + 2);
-  r.dx = cy * dx0 + sy * z1;
+  r.ex = k.ex;
+  r.ey = k.ey;
+  r.ez = k.ez;
+  r.dx = k.cy * dx0 + k.sy * z1;
   r.dy = y1;
-  r.dz = -sy * dx0 + cy * z1;
+  r.dz = -k.sy * dx0 + k.cy * z1;
   r.ix = recip_safe(r.dx);
   r.iy = recip_safe(r.dy);
   r.iz = recip_safe(r.dz);
@@ -645,11 +679,63 @@ __device__ __forceinline__ void epilogue(const Pixel& px, const Ray& ray,
 }
 
 // ---------------------------------------------------------------------------
-// Traversals. One `trace<FORM>` per form of the reference kernel; each handles
-// one 256-thread sub-block (2 pixel rows) and leaves the closest hit in `c`.
-// Every loop bound and every branch into a row body below depends only on
-// table values, on a block-wide vote (__syncthreads_or) or on block_max, so
-// all threads of a block take the same path and reach the same barriers.
+// Asynchronous staging: bulk copies global -> shared memory by the Tensor
+// Memory Accelerator, completion counted in bytes on an mbarrier (one arrival:
+// the issuing thread's expect_tx). Sizes and addresses are multiples of 16.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait for the completion of barrier `slot`'s current phase; `phase` holds
+// one parity bit per barrier (the same in every thread). A copy that never
+// lands (a fault) traps after some seconds instead of hanging the card.
+__device__ __forceinline__ void bar_wait(uint64_t* bars, int slot, uint32_t& phase) {
+  const uint32_t addr = smem_u32(bars + slot);
+  const uint32_t parity = (phase >> slot) & 1u;
+  uint32_t done;
+  uint32_t spins = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (++spins == (1u << 24)) __trap();
+  } while (!done);
+  phase ^= 1u << slot;
+}
+
+// ---------------------------------------------------------------------------
+// Traversals. One `trace_*` per form of the reference kernel; each handles one
+// sub-block (2 P pixel rows) and leaves the closest hit of every pixel in `c`.
+// Every loop bound and every branch into a row below depends only on table
+// values, on a block-wide vote (__syncthreads_or) or on block_max, so all
+// threads of a block take the same path and reach the same barriers.
 // ---------------------------------------------------------------------------
 enum { FORM_B1 = 1, FORM_B2, FORM_B3, FORM_B4, FORM_B5 };
 
@@ -666,7 +752,7 @@ struct Args {
   const float* __restrict__ cdist;      // [B, A, G]             (B2)
   const float* __restrict__ kc;         // render constants
   int* __restrict__ out;                // [B, A, H, 128]
-  int* __restrict__ visits;             // [sub-blocks, 2] or null
+  int* __restrict__ visits;             // [B, A, H, 2] or null
   int num_agents, height, num_prims, num_clusters, num_words;
   int list_len;                         // L: entries per list of `order`
   int per_tile;                         // lists per (env, agent, tile)
@@ -678,84 +764,19 @@ struct Walk {
   const float* ctab;    // this env's cluster boxes
   size_t ba;            // env * A + agent
   size_t bat;           // (env * A + agent) * T + tile
-  int ran_aabb, ran_other;   // clusters run, by body (for `visits`)
+  int ran_aabb, ran_other;   // clusters run, by tag (for `visits`)
 };
 
-template <bool TIE>
-__device__ __forceinline__ void run_cluster(const Ray& ray,
-                                            const float* __restrict__ table,
-                                            const float* __restrict__ clusters,
-                                            int gc, Carry& c) {
-  int tag = (int)__ldg(clusters + (size_t)gc * 8 + 6);
-  const int base = gc * CLUSTER_K;
-  const float* p = table + (size_t)base * ROW_W;
-  switch (tag) {
-    case 0:
-#pragma unroll 1
-      for (int j = 0; j < CLUSTER_K; ++j)
-        body_aabb<TIE>(ray, p + j * ROW_W, base + j, c);
-      break;
-    case 6:
-#pragma unroll 1
-      for (int j = 0; j < CLUSTER_K; ++j)
-        body_rotbox<TIE>(ray, p + j * ROW_W, base + j, c);
-      break;
-    case 1:
-#pragma unroll 1
-      for (int j = 0; j < CLUSTER_K; ++j)
-        body_ellipsoid<TIE>(ray, p + j * ROW_W, base + j, c);
-      break;
-    case 2:
-#pragma unroll 1
-      for (int j = 0; j < CLUSTER_K; ++j)
-        body_cylinder<TIE>(ray, p + j * ROW_W, base + j, c);
-      break;
-    case 3:
-    case 4:
-    case 8:  // TAG_CONE_MIXED
-#pragma unroll 1
-      for (int j = 0; j < CLUSTER_K; ++j)
-        body_cone<TIE>(ray, p + j * ROW_W, base + j, c);
-      break;
-    case 7:
-#pragma unroll 1
-      for (int j = 0; j < CLUSTER_K; ++j)
-        body_wall<TIE>(ray, p + j * ROW_W, base + j, c);
-      break;
-    default:
-#pragma unroll 1
-      for (int j = 0; j < CLUSTER_K; ++j)
-        body_generic<TIE>(ray, p + j * ROW_W, base + j, c);
-      break;
-  }
-}
+// Shared memory a block's traversal works in.
+struct Stage {
+  unsigned char* dyn;   // dynamic shared memory (B1: row chunks; B2: ring + walk tables)
+  uint64_t* bars;       // NBARS mbarriers
+  float* red;           // NWARPS floats for block_max
+  uint32_t phase;       // parity bit per barrier
+};
 
-// Run cluster gc and count it for `visits`.
-template <bool TIE>
-__device__ __forceinline__ void visit_cluster(const Ray& ray, Walk& w, int gc,
-                                              Carry& c) {
-  run_cluster<TIE>(ray, w.table, w.ctab, gc, c);
-  if ((int)__ldg(w.ctab + (size_t)gc * 8 + 6) == 0) ++w.ran_aabb; else ++w.ran_other;
-}
-
-// Can this pixel's ray still find a hit closer than `bt` inside the box
-// (lo xyz, hi xyz)? No `tmin > near` term: a camera inside the box must still
-// process it. SLACK absorbs the rounding between these slab products and the
-// per-type intersection routines (a quadric's hit can land an ulp before the
-// box entry); it assumes unit ray directions. A dead box (point at +INF)
-// gives tmin = +inf or tmax = -inf and never passes.
-__device__ __forceinline__ bool box_reachable(const Ray& r,
-                                              const float* __restrict__ box,
-                                              float bt) {
-  float t1x = __ldg(box + 0) * r.ix - r.exix;
-  float t2x = __ldg(box + 3) * r.ix - r.exix;
-  float t1y = __ldg(box + 1) * r.iy - r.eyiy;
-  float t2y = __ldg(box + 4) * r.iy - r.eyiy;
-  float t1z = __ldg(box + 2) * r.iz - r.eziz;
-  float t2z = __ldg(box + 5) * r.iz - r.eziz;
-  float tmin = fmaxf(fminf(t1x, t2x), fmaxf(fminf(t1y, t2y), fminf(t1z, t2z)));
-  float tmax = fminf(fmaxf(t1x, t2x), fminf(fmaxf(t1y, t2y), fmaxf(t1z, t2z)));
-  return (tmax >= tmin) && (tmax > 0.0f) && (tmin < bt + SLACK);
+__device__ __forceinline__ void count_visit(Walk& w, const Box& bx) {
+  if ((int)bx.tag == 0) ++w.ran_aabb; else ++w.ran_other;
 }
 
 // Does cluster gc own eight rows of the table? False for the clusters that
@@ -765,79 +786,191 @@ __device__ __forceinline__ bool cluster_has_rows(int gc, int num_prims) {
   return gc >= 0 && gc * CLUSTER_K + CLUSTER_K <= num_prims;
 }
 
-template <int FORM>
-__device__ __forceinline__ void trace(const Args& A, const Pixel& px,
-                                      const Ray& ray, Walk& w, Carry& c,
-                                      float* red);
-
-// B1: unculled, every row in table order, generic row test, strict carry.
-template <>
-__device__ __forceinline__ void trace<FORM_B1>(const Args& A, const Pixel& px,
-                                               const Ray& ray, Walk& w,
-                                               Carry& c, float* red) {
-  c.t = INF_T;
+// B1: unculled, every live row in table order, strict carry from +INF. The
+// table streams through shared memory in chunks of B1_CHUNK rows, B1_STAGES
+// chunks in flight: while the block runs chunk n, chunk n + 1 is arriving.
+template <int P>
+__device__ __forceinline__ void trace_b1(const Args& A, Walk& w, const Ray (&ray)[P],
+                                         Carry (&c)[P], Stage& s) {
+  float* stage = reinterpret_cast<float*>(s.dyn);
+  const int m = A.num_prims;
+  const int chunks = (m + B1_CHUNK - 1) / B1_CHUNK;
+  auto fetch = [&](int ch) {
+    if (threadIdx.x == 0) {
+      const int r0 = ch * B1_CHUNK;
+      const int n = min(B1_CHUNK, m - r0);
+      const int slot = ch % B1_STAGES;
+      const uint32_t bytes = (uint32_t)n * ROW_W * 4;
+      bar_expect(s.bars + slot, bytes);
+      bulk_load(stage + slot * B1_CHUNK * ROW_W, w.table + (size_t)r0 * ROW_W, bytes,
+                s.bars + slot);
+    }
+  };
+#pragma unroll
+  for (int p = 0; p < P; ++p) c[p].t = INF_T;
+  __syncthreads();  // a merged launch's previous sub-block is done with the stages
+  for (int ch = 0; ch < min(B1_STAGES, chunks); ++ch) fetch(ch);
 #pragma unroll 1
-  for (int i = 0; i < A.num_prims; ++i)
-    body_generic<false>(ray, w.table + (size_t)i * ROW_W, i, c);
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int slot = ch % B1_STAGES;
+    bar_wait(s.bars, slot, s.phase);
+    const float* rows = stage + slot * B1_CHUNK * ROW_W;
+    const int r0 = ch * B1_CHUNK;
+    const int n = min(B1_CHUNK, m - r0);
+    // 32 rows at a time, each lane reads one row's type; the ballot (the
+    // same in every warp) lists the live ones, in order
+#pragma unroll 1
+    for (int j0 = 0; j0 < n; j0 += 32) {
+      const int j = j0 + (threadIdx.x & 31);
+      unsigned live = __ballot_sync(0xffffffffu, j < n && rows[j * ROW_W] >= 0.0f);
+#pragma unroll 1
+      while (live) {
+        const int jj = j0 + __ffs(live) - 1;
+        live &= live - 1;
+        row_dispatch<false, P>(ray, load_row<true>(rows + jj * ROW_W), r0 + jj, c);
+      }
+    }
+    if (ch + B1_STAGES < chunks) {
+      __syncthreads();  // every thread is done reading this slot
+      fetch(ch + B1_STAGES);
+    }
+  }
 }
 
 // B2: bit-walk over the tile's front-to-back supercluster list.
-template <>
-__device__ __forceinline__ void trace<FORM_B2>(const Args& A, const Pixel& px,
-                                               const Ray& ray, Walk& w,
-                                               Carry& c, float* red) {
-  const int num_super = A.num_clusters / SUPER_K;
-  const int* sl = A.sclist + w.bat * num_super;
-  const float* sd = A.scdist + w.bat * num_super;
-  const unsigned* cw =
-      reinterpret_cast<const unsigned*>(A.clbits) + w.bat * A.num_words;
-  const float* cd = A.cdist + w.ba * A.num_clusters;
+//
+// The tile's walk tables (sclist, scdist, clbits, cdist) are staged in shared
+// memory once. A candidate is a member cluster whose tile bit is set and
+// whose eye distance is within the depth bound, in list order; the walk ends
+// at the sentinel or at the first supercluster beyond the bound (the list is
+// ascending). One thread stages the next two candidates' rows and boxes (416
+// bytes each) in a ring of B2_SLOTS slots while the block votes on and runs
+// the current one. The bound only falls, so a candidate found earlier is
+// re-checked when its turn comes; a prefetched cluster that is then skipped
+// costs one copy, never a pixel. Before its rows run, the candidate's box is slab-tested
+// against every pixel's current depth (box_reachable, __syncthreads_or): a
+// cluster no pixel can reach holds no row whose t could beat or tie any
+// pixel's best.
+template <int P>
+__device__ __forceinline__ void trace_b2(const Args& A, Walk& w, const Ray (&ray)[P],
+                                         Carry (&c)[P], Stage& s) {
+  const int G = A.num_clusters;
+  const int S = G / SUPER_K;
+  float* ring = reinterpret_cast<float*>(s.dyn);
+  int* sl = reinterpret_cast<int*>(ring + B2_SLOTS * SLOT_FLOATS);
+  float* sd = reinterpret_cast<float*>(sl + S);
+  unsigned* cw = reinterpret_cast<unsigned*>(sd + S);
+  float* cd = reinterpret_cast<float*>(cw + A.num_words);
+
+  __syncthreads();  // a merged launch's previous sub-block is done with all of it
+  {
+    const int* gsl = A.sclist + w.bat * S;
+    const float* gsd = A.scdist + w.bat * S;
+    const unsigned* gcw = reinterpret_cast<const unsigned*>(A.clbits) + w.bat * A.num_words;
+    const float* gcd = A.cdist + w.ba * G;
+    for (int i = threadIdx.x; i < S; i += NTHREADS) {
+      sl[i] = __ldg(gsl + i);
+      sd[i] = __ldg(gsd + i);
+    }
+    for (int i = threadIdx.x; i < A.num_words; i += NTHREADS) cw[i] = __ldg(gcw + i);
+    for (int i = threadIdx.x; i < G; i += NTHREADS) cd[i] = __ldg(gcd + i);
+  }
+  __syncthreads();
 
   // The depth starts at the FAR plane (not +INF): hits at t >= far render as
   // sky either way, and a tile whose rays all miss then has maxt == far
   // instead of an unskippable +INF bound.
-  c.t = FAR_T;
-
+#pragma unroll
+  for (int p = 0; p < P; ++p) c[p].t = FAR_T;
   // maxt is an upper bound on this block's per-ray depths. cdist/scdist are
   // geometric lower bounds (eye -> cluster AABB distance; ray dirs are unit
   // length) on t of any member hit; SLACK absorbs their rounding, so a skipped
   // cluster's hits satisfy t > maxt >= best strictly: neither a win nor a tie.
   float maxt = FAR_T;
-  int nproc = 0;
-  for (int g = 0; g < num_super; ++g) {
-    int gs = __ldg(sl + g);
-    if (gs >= num_super) break;                      // sentinel: end of list
-    if (!(__ldg(sd + g) <= maxt + SLACK)) break;     // list is ascending
-    int ran = 0;
-#pragma unroll 1
-    for (int j = 0; j < SUPER_K; ++j) {
-      int gc = gs * SUPER_K + j;
-      unsigned bit = (__ldg(cw + (gc >> 5)) >> (gc & 31)) & 1u;
-      if (bit && (__ldg(cd + gc) <= maxt + SLACK)) {
-        visit_cluster<true>(ray, w, gc, c);
-        ran = 1;
-      }
+
+  // Walk positions: list entry * SUPER_K + member. First candidate at or
+  // after `q` under the bound `mt`, or -1 when the walk ends first.
+  const int end = S * SUPER_K;
+  auto next = [&](int q, float mt) -> int {
+    for (; q < end; ++q) {
+      const int e = q / SUPER_K;
+      if (sl[e] >= S || !(sd[e] <= mt + SLACK)) return -1;
+      const int gc = sl[e] * SUPER_K + q % SUPER_K;
+      if (((cw[gc >> 5] >> (gc & 31)) & 1u) && cd[gc] <= mt + SLACK) return q;
     }
-    nproc += ran;
-    // Refresh the bound after the 1st, 5th, 9th, ... processed supercluster:
-    // most of its value comes from the nearest occluder; staleness only delays
-    // skips (maxt only ever overestimates the depths).
-    if (ran && ((nproc & 3) == 1)) maxt = block_max(c.t, red);
+    return -1;
+  };
+  auto cluster_of = [&](int q) { return sl[q / SUPER_K] * SUPER_K + q % SUPER_K; };
+  auto fetch = [&](int q, int slot) {
+    if (threadIdx.x == 0) {
+      const int gc = cluster_of(q);
+      float* dst = ring + slot * SLOT_FLOATS;
+      bar_expect(s.bars + slot, SLOT_FLOATS * 4);
+      bulk_load(dst, w.table + (size_t)gc * CLUSTER_FLOATS, CLUSTER_FLOATS * 4, s.bars + slot);
+      bulk_load(dst + CLUSTER_FLOATS, w.ctab + (size_t)gc * BOX_FLOATS, BOX_FLOATS * 4,
+                s.bars + slot);
+    }
+  };
+
+  // Two candidates are always in flight: candidate n sits in slot
+  // n % B2_SLOTS and n + 1 in the next; n + 2 is fetched once every thread
+  // has voted on n, i.e. is done with n - 1's slot, which it takes.
+  int cur = next(0, maxt);
+  int nxt = cur >= 0 ? next(cur + 1, maxt) : -1;
+  if (cur >= 0) fetch(cur, 0);
+  if (nxt >= 0) fetch(nxt, 1);
+  int n = 0;
+  int entry_ran = 0;  // the current list entry (supercluster) ran rows
+#pragma unroll 1
+  while (cur >= 0) {
+    const int slot = n % B2_SLOTS;
+    bar_wait(s.bars, slot, s.phase);
+    const int e = cur / SUPER_K;
+    if (!(sd[e] <= maxt + SLACK)) {
+      // the bound fell below this supercluster since it was found: the walk
+      // is over; drain the copy in flight before the slots are reused
+      if (nxt >= 0) bar_wait(s.bars, (n + 1) % B2_SLOTS, s.phase);
+      break;
+    }
+    const int gc = cluster_of(cur);
+    const float* slot_rows = ring + slot * SLOT_FLOATS;
+    const Box bx = load_box<true>(slot_rows + CLUSTER_FLOATS);
+    const bool want = cd[gc] <= maxt + SLACK;
+    const bool vote = __syncthreads_or(want && any_reachable<P>(ray, bx, c));
+    const int after = nxt >= 0 ? next(nxt + 1, maxt) : -1;
+    if (after >= 0) fetch(after, (n + 2) % B2_SLOTS);
+    if (vote) {
+      run_cluster<true, P, true>(ray, slot_rows, gc * CLUSTER_K, c);
+      count_visit(w, bx);
+      entry_ran = 1;
+    }
+    if (entry_ran && (nxt < 0 || nxt / SUPER_K != e)) {
+      // leaving list entry e, which ran rows: refresh the bound (staleness
+      // would only delay skips: maxt only ever overestimates the depths)
+      maxt = block_max(max_depth<P>(c), s.red);
+      entry_ran = 0;
+    }
+    cur = nxt;
+    nxt = after;
+    ++n;
   }
 }
 
 // B3: clustered, in table order. Per cluster one slab test of its box against
 // the pixel's current depth, a block-wide vote, then the rows. Strict carry
 // from +INF: rows run in table order, and a skipped row could at best tie.
-template <>
-__device__ __forceinline__ void trace<FORM_B3>(const Args& A, const Pixel& px,
-                                               const Ray& ray, Walk& w,
-                                               Carry& c, float* red) {
-  c.t = INF_T;
+template <int P>
+__device__ __forceinline__ void trace_b3(const Args& A, Walk& w, const Ray (&ray)[P],
+                                         Carry (&c)[P], Stage& s) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) c[p].t = INF_T;
   const int groups = A.num_prims / CLUSTER_K;
   for (int g = 0; g < groups; ++g) {
-    if (__syncthreads_or(box_reachable(ray, w.ctab + (size_t)g * 8, c.t)))
-      visit_cluster<false>(ray, w, g, c);
+    const Box bx = load_box<false>(w.ctab + (size_t)g * BOX_FLOATS);
+    if (__syncthreads_or(any_reachable<P>(ray, bx, c))) {
+      run_cluster<false, P, false>(ray, w.table + (size_t)g * CLUSTER_FLOATS, g * CLUSTER_K, c);
+      count_visit(w, bx);
+    }
   }
 }
 
@@ -847,22 +980,25 @@ __device__ __forceinline__ void trace<FORM_B3>(const Args& A, const Pixel& px,
 // the depth starts at the far plane and the walk ends at the first entry
 // beyond the block's largest depth, which is refreshed (one block reduction)
 // after every cluster whose rows ran.
-template <>
-__device__ __forceinline__ void trace<FORM_B4>(const Args& A, const Pixel& px,
-                                               const Ray& ray, Walk& w,
-                                               Carry& c, float* red) {
+template <int P>
+__device__ __forceinline__ void trace_b4(const Args& A, Walk& w, const Ray (&ray)[P],
+                                         Carry (&c)[P], Stage& s) {
   const size_t list = (A.per_tile ? w.bat : w.ba) * (size_t)A.list_len;
   const int* ord = A.order + list;
   const float* dst = A.dist ? A.dist + list : nullptr;
-  c.t = dst ? FAR_T : INF_T;
+#pragma unroll
+  for (int p = 0; p < P; ++p) c[p].t = dst ? FAR_T : INF_T;
   float maxt = FAR_T;
   for (int g = 0; g < A.list_len; ++g) {
     if (dst && !(maxt >= __ldg(dst + g))) break;
     int gc = __ldg(ord + g);
     if (!cluster_has_rows(gc, A.num_prims)) continue;
-    if (__syncthreads_or(box_reachable(ray, w.ctab + (size_t)gc * 8, c.t))) {
-      visit_cluster<true>(ray, w, gc, c);
-      if (dst) maxt = block_max(c.t, red);
+    const Box bx = load_box<false>(w.ctab + (size_t)gc * BOX_FLOATS);
+    if (__syncthreads_or(any_reachable<P>(ray, bx, c))) {
+      run_cluster<true, P, false>(ray, w.table + (size_t)gc * CLUSTER_FLOATS,
+                                  gc * CLUSTER_K, c);
+      count_visit(w, bx);
+      if (dst) maxt = block_max(max_depth<P>(c), s.red);
     }
   }
 }
@@ -870,86 +1006,148 @@ __device__ __forceinline__ void trace<FORM_B4>(const Args& A, const Pixel& px,
 // B5: two levels. The tile's list is over superclusters; one slab test and
 // vote per listed supercluster prunes 4 clusters x 8 rows, its members are
 // then tested as in B3 against the running depths.
-template <>
-__device__ __forceinline__ void trace<FORM_B5>(const Args& A, const Pixel& px,
-                                               const Ray& ray, Walk& w,
-                                               Carry& c, float* red) {
+template <int P>
+__device__ __forceinline__ void trace_b5(const Args& A, Walk& w, int env, const Ray (&ray)[P],
+                                         Carry (&c)[P], Stage& s) {
   const int num_super = A.num_clusters / SUPER_K;
-  const float* sctab = A.sclusters + (size_t)px.b * num_super * 8;
+  const float* sctab = A.sclusters + (size_t)env * num_super * BOX_FLOATS;
   const size_t list = (A.per_tile ? w.bat : w.ba) * (size_t)A.list_len;
   const int* ord = A.order + list;
   const float* dst = A.dist + list;
-  c.t = FAR_T;
+#pragma unroll
+  for (int p = 0; p < P; ++p) c[p].t = FAR_T;
   float maxt = FAR_T;
   for (int gpos = 0; gpos < A.list_len; ++gpos) {
     if (!(maxt >= __ldg(dst + gpos))) break;
     int gsc = __ldg(ord + gpos);
     if (gsc < 0 || gsc >= num_super) continue;
-    if (!__syncthreads_or(box_reachable(ray, sctab + (size_t)gsc * 8, c.t)))
-      continue;
+    const Box sbx = load_box<false>(sctab + (size_t)gsc * BOX_FLOATS);
+    if (!__syncthreads_or(any_reachable<P>(ray, sbx, c))) continue;
 #pragma unroll 1
     for (int j = 0; j < SUPER_K; ++j) {
       int gc = gsc * SUPER_K + j;
       if (!cluster_has_rows(gc, A.num_prims)) continue;
-      if (__syncthreads_or(box_reachable(ray, w.ctab + (size_t)gc * 8, c.t))) {
-        visit_cluster<true>(ray, w, gc, c);
-        maxt = block_max(c.t, red);
+      const Box bx = load_box<false>(w.ctab + (size_t)gc * BOX_FLOATS);
+      if (__syncthreads_or(any_reachable<P>(ray, bx, c))) {
+        run_cluster<true, P, false>(ray, w.table + (size_t)gc * CLUSTER_FLOATS,
+                                    gc * CLUSTER_K, c);
+        count_visit(w, bx);
+        maxt = block_max(max_depth<P>(c), s.red);
       }
     }
   }
 }
 
+// Pixels per thread of each form. The staged forms share a row read from
+// shared memory and the walk's control between two rays; one or four read
+// slower on the card (PERF.md, "Launch shapes"). B3-B5 were not redesigned.
+template <int FORM>
+__host__ __device__ constexpr int pixels_per_thread() {
+  return FORM == FORM_B1 || FORM == FORM_B2 ? 2 : 1;
+}
+
+// Pixel rows of one block: LANES * P. P = 1 gives the 2-row sub-blocks of
+// four blocks per tile, P = 2 two blocks per tile.
+template <int P>
+__host__ __device__ constexpr int subs_per_tile() {
+  static_assert(TILE_H % (LANES * P) == 0, "a tile holds whole sub-blocks");
+  return TILE_H / (LANES * P);
+}
+
 // One kernel for every form. Tiled launch (MERGED = false): one block per
-// 2-row sub-block, grid B * A * T * SUBS. Merged launch (B6): one block per
-// (env, agent) frame that loops the frame's T * SUBS sub-blocks.
+// sub-block, grid B * A * T * subs. Merged launch (B6): one block per (env,
+// agent) frame that loops the frame's T * subs sub-blocks.
+// Registers per thread grow with P: 4 blocks of 256 threads per SM at P = 1,
+// 3 at P = 2.
 template <int FORM, bool MERGED>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, pixels_per_thread<FORM>() == 1 ? 4 : 3)
 render_kernel(const __grid_constant__ Args A) {
+  constexpr int P = pixels_per_thread<FORM>();
+  extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ float red[NWARPS];
+  __shared__ __align__(8) uint64_t bars[NBARS];
+  constexpr int SUBS = subs_per_tile<P>();
+  constexpr bool STAGED = FORM == FORM_B1 || FORM == FORM_B2;
   const int tiles = A.height / TILE_H;
   const int per_frame = tiles * SUBS;
   const int first = MERGED ? blockIdx.x * per_frame : blockIdx.x;
   const int count = MERGED ? per_frame : 1;
+  Stage s{dyn, bars, red, 0u};
+  if (STAGED) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < NBARS; ++i) bar_init(bars + i);
+      bar_init_fence();
+    }
+    __syncthreads();
+  }
 #pragma unroll 1
   for (int k = 0; k < count; ++k) {
-    const int blk = first + k;
-    Pixel px = locate(blk, A.num_agents, tiles, A.height);
+    int blk = first + k;
+    const int sub = blk % SUBS;
+    blk /= SUBS;
+    const int tile = blk % tiles;
+    blk /= tiles;
+    const int a = blk % A.num_agents;
+    const int b = blk / A.num_agents;
     Walk w;
-    w.ba = (size_t)px.b * A.num_agents + px.a;
-    w.bat = w.ba * tiles + px.tile;
-    w.table = A.prims + (size_t)px.b * A.num_prims * ROW_W;
-    w.ctab = A.clusters + (size_t)px.b * A.num_clusters * 8;
+    w.ba = (size_t)b * A.num_agents + a;
+    w.bat = w.ba * tiles + tile;
+    w.table = A.prims + (size_t)b * A.num_prims * ROW_W;
+    w.ctab = A.clusters + (size_t)b * A.num_clusters * BOX_FLOATS;
     w.ran_aabb = w.ran_other = 0;
     const float* cam = A.cams + w.ba * 8;
-    Ray ray = make_ray(px, cam, A.kc);
+    const Cam camk = load_cam(cam);
+    const int y0 = tile * TILE_H + sub * LANES * P + (threadIdx.x >> 7);
 
-    Carry c;
-    c.idx = A.num_prims;
-    c.nx = c.ny = c.nz = 0.0f;
-    c.code = CODE_DIRECT;
-    c.c = 0.0f;
-    trace<FORM>(A, px, ray, w, c, red);
+    Pixel px[P];
+    Ray ray[P];
+    Carry c[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      px[p] = make_pixel(b, a, y0 + LANES * p, A.height);
+      ray[p] = make_ray(px[p], camk, A.kc);
+      c[p].idx = A.num_prims;
+      c[p].nx = c[p].ny = c[p].nz = 0.0f;
+      c[p].code = CODE_DIRECT;
+      c[p].c = 0.0f;
+    }
+    if constexpr (FORM == FORM_B1) trace_b1<P>(A, w, ray, c, s);
+    else if constexpr (FORM == FORM_B2) trace_b2<P>(A, w, ray, c, s);
+    else if constexpr (FORM == FORM_B3) trace_b3<P>(A, w, ray, c, s);
+    else if constexpr (FORM == FORM_B4) trace_b4<P>(A, w, ray, c, s);
+    else trace_b5<P>(A, w, b, ray, c, s);
 
-    epilogue(px, ray, c, cam, A.kc, A.ui_indicators, A.height, A.num_agents,
-             A.out);
-    // Optional measurement output: how many clusters this sub-block ran.
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      epilogue(px[p], ray[p], c[p], cam, A.kc, A.ui_indicators, A.height, A.num_agents,
+               A.out);
+    // Optional measurement output: the clusters whose rows ran for each pixel
+    // row of this sub-block.
     if (A.visits != nullptr && threadIdx.x == 0) {
-      A.visits[2 * (size_t)blk + 0] = w.ran_aabb;
-      A.visits[2 * (size_t)blk + 1] = w.ran_other;
+      const int ytop = tile * TILE_H + sub * LANES * P;
+      for (int r = 0; r < LANES * P; ++r) {
+        const size_t o = 2 * (w.ba * A.height + ytop + r);
+        A.visits[o + 0] = w.ran_aabb;
+        A.visits[o + 1] = w.ran_other;
+      }
     }
   }
 }
 
 template <int FORM>
-int launch(const Args& A, int batch, int merged, cudaStream_t stream) {
+int launch(const Args& A, int batch, int merged, size_t smem, cudaStream_t stream) {
+  constexpr int P = pixels_per_thread<FORM>();
   const int frames = batch * A.num_agents;
-  if (frames > 0) {
-    if (merged)
-      render_kernel<FORM, true><<<frames, NTHREADS, 0, stream>>>(A);
-    else
-      render_kernel<FORM, false>
-          <<<frames * (A.height / TILE_H) * SUBS, NTHREADS, 0, stream>>>(A);
+  if (frames <= 0) return (int)cudaGetLastError();
+  void (*kern)(const Args) =
+      merged ? render_kernel<FORM, true> : render_kernel<FORM, false>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
+  const int grid = merged ? frames : frames * (A.height / TILE_H) * subs_per_tile<P>();
+  kern<<<grid, NTHREADS, smem, stream>>>(A);
   return (int)cudaGetLastError();
 }
 
@@ -992,18 +1190,20 @@ int mv_render(int form, int merged, const float* cams, const float* prims,
   A.per_tile = per_tile;
   A.ui_indicators = ui_indicators;
   switch (form) {
-    case FORM_B1: return launch<FORM_B1>(A, batch, merged, stream);
-    case FORM_B2: return launch<FORM_B2>(A, batch, merged, stream);
-    case FORM_B3: return launch<FORM_B3>(A, batch, merged, stream);
-    case FORM_B4: return launch<FORM_B4>(A, batch, merged, stream);
-    case FORM_B5: return launch<FORM_B5>(A, batch, merged, stream);
+    case FORM_B1:
+      return launch<FORM_B1>(A, batch, merged, (size_t)B1_STAGES * B1_CHUNK * ROW_W * 4,
+                             stream);
+    case FORM_B2: {
+      const size_t walk = (size_t)2 * (num_clusters / SUPER_K) + num_words + num_clusters;
+      return launch<FORM_B2>(A, batch, merged, ((size_t)B2_SLOTS * SLOT_FLOATS + walk) * 4,
+                             stream);
+    }
+    case FORM_B3: return launch<FORM_B3>(A, batch, merged, 0, stream);
+    case FORM_B4: return launch<FORM_B4>(A, batch, merged, 0, stream);
+    case FORM_B5: return launch<FORM_B5>(A, batch, merged, 0, stream);
     default: return -1;
   }
 }
-
-// 256-thread sub-blocks per 8-row tile (sizes the `visits` buffer: 2 ints a
-// sub-block, whichever launch shape).
-int mv_render_blocks_per_tile() { return SUBS; }
 
 int mv_render_const_count() { return K_COUNT; }
 

@@ -171,7 +171,10 @@ def make_rays(cams: torch.Tensor, height: int, width: int) -> Rays:
 # see their own body/eyes from inside). Each returns (t, nx, ny, nz).
 # ---------------------------------------------------------------------------
 
-def _slab(lo, hi, oxix, oyiy, oziz, rdx, rdy, rdz, rix, riy, riz):
+def slab_interval(lo, hi, oxix, oyiy, oziz, rix, riy, riz):
+    """Slab test of rays against the box (lo, hi): (tmin, tmax, tminx,
+    tminy), the entry and exit parameters and the entry on the x and y
+    axes."""
     t1x = lo[0] * rix - oxix
     t2x = hi[0] * rix - oxix
     t1y = lo[1] * riy - oyiy
@@ -185,6 +188,11 @@ def _slab(lo, hi, oxix, oyiy, oziz, rdx, rdy, rdz, rix, riy, riz):
     tmax = torch.minimum(torch.maximum(t1x, t2x),
                          torch.minimum(torch.maximum(t1y, t2y),
                                        torch.maximum(t1z, t2z)))
+    return tmin, tmax, tminx, tminy
+
+
+def _slab(lo, hi, oxix, oyiy, oziz, rdx, rdy, rdz, rix, riy, riz):
+    tmin, tmax, tminx, tminy = slab_interval(lo, hi, oxix, oyiy, oziz, rix, riy, riz)
     hit = (tmax >= tmin) & (tmin > NEAR)
     t = torch.where(hit, tmin, torch.full_like(tmin, INF))
     # Normal: entry axis, facing against the ray.
@@ -516,7 +524,23 @@ def render_table_packed(cams: torch.Tensor, prims: torch.Tensor, height: int,
                         row_mask: Optional[torch.Tensor] = None,
                         tiebreak: Optional[bool] = None,
                         far_start: Optional[bool] = None) -> torch.Tensor:
-    """Render cams [B,A,8] against prims [B,M,12] -> packed int32 [B,A,H,W].
+    """Render cams [B,A,8] against prims [B,M,12] -> packed int32 [B,A,H,W];
+    the traversal is `trace_table`'s."""
+    rays, bt, _, bnx, bny, bnz, bc = trace_table(cams, prims, height, width, row_order,
+                                                 row_mask, tiebreak, far_start)
+    planes = shade_planes(rays, bt, bnx, bny, bnz, bc)
+    planes = hud_planes(cams, planes, height, width, ui_indicators)
+    return pack_planes(*planes)
+
+
+def trace_table(cams: torch.Tensor, prims: torch.Tensor, height: int, width: int,
+                row_order: Optional[Sequence[int]] = None,
+                row_mask: Optional[torch.Tensor] = None,
+                tiebreak: Optional[bool] = None,
+                far_start: Optional[bool] = None):
+    """Closest hit of every pixel's ray in the table: (rays, t, row, nx, ny,
+    nz, packed colour), each [B,A,H,W] but the rays; `row` is the winning
+    row's index, M where no row won.
 
     Default: rows in table order with the strict `t < best` carry starting at
     +INF (the unculled in-order form). With `row_order` (any sequence of row
@@ -575,15 +599,12 @@ def render_table_packed(cams: torch.Tensor, prims: torch.Tensor, height: int,
             t = torch.where(pix_mask[:, :, :, i, None], t, inf)
         if tiebreak:
             closer = (t < bt) | ((t == bt) & (i < bidx))
-            bidx = torch.where(closer, torch.full_like(bidx, i), bidx)
         else:
             closer = t < bt
+        bidx = torch.where(closer, torch.full_like(bidx, i), bidx)
         bt = torch.where(closer, t, bt)
         bnx = torch.where(closer, nx, bnx)
         bny = torch.where(closer, ny, bny)
         bnz = torch.where(closer, nz, bnz)
         bc = torch.where(closer, col, bc)
-
-    planes = shade_planes(rays, bt, bnx, bny, bnz, bc)
-    planes = hud_planes(cams, planes, height, width, ui_indicators)
-    return pack_planes(*planes)
+    return rays, bt, bidx, bnx, bny, bnz, bc

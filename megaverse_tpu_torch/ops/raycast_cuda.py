@@ -14,7 +14,9 @@ the reference:
 What bounds them on an H100 is f32 arithmetic per visited table row, not
 memory traffic (a frame reads a few KB of tables per env and writes 4 bytes
 per pixel); the design keeps each pixel's ray and closest-hit carry in
-registers and relies on the cull tables built here to visit few rows.
+registers and relies on the cull tables built here to visit few rows. B1 and
+B2 give each thread several pixels and stage the rows they visit in shared
+memory with asynchronous bulk copies (see csrc/render.cu).
 
 The tables the kernel consumes are plain PyTorch, batched over envs:
   1. build_prim_table: unified primitive rows [B, M, 12] (layout below);
@@ -86,6 +88,8 @@ PRIM_ROTBOX_WALL = R.PRIM_ROTBOX_WALL
 TAG_CONE_MIXED = 8  # cluster tag: live rows are CONE / CONE_FLIPPED mixed
 
 FAR = float(C.CAMERA_FAR)
+# Slack of the kernel's distance and slab bounds (csrc/render.cu SLACK).
+SLACK = 0.01
 
 # Launch counts, one per form: `render_packed` adds one where it launches the
 # kernel, nowhere else. A merged launch counts as B6 whatever it traverses.
@@ -162,8 +166,6 @@ def load_library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mv_render.restype = i
         lib.mv_render.argtypes = [i, i] + [p] * 13 + [i] * 9 + [p]
-        lib.mv_render_blocks_per_tile.restype = i
-        lib.mv_render_blocks_per_tile.argtypes = []
         lib.mv_render_const_count.restype = i
         lib.mv_render_const_count.argtypes = []
         if lib.mv_render_const_count() != R.K_COUNT:
@@ -239,12 +241,12 @@ def render_packed(cams: torch.Tensor, prims: torch.Tensor, height: int, width: i
           (frustum_cull on the supercluster table); `clusters` is padded to
           4 S, `prims` need not be (8 G' rows for the G' <= G real clusters);
       B6  `merge_tiles`: the same traversal, launched with one thread block
-          per (env, agent) frame instead of one per 2-row sub-block.
+          per (env, agent) frame instead of one per sub-block.
 
     CUDA tensors launch the kernel (built at first use) or raise; CPU tensors
-    take the plain PyTorch version. `visits` (measurement only, forms B2-B5 on
-    CUDA): an int32 tensor from `new_visits` that receives, per sub-block,
-    the number of all-AABB and of other clusters whose rows it ran."""
+    take the plain PyTorch version. Measurement only, on CUDA: `visits`, an
+    int32 tensor from `new_visits` that receives, per pixel row, the number
+    of all-AABB and of other clusters whose rows ran for it (forms B2-B5)."""
     tables = dict(clusters=clusters, order=order, dist=dist, sclusters=sclusters,
                   merge_tiles=merge_tiles, sclist=sclist, clbits=clbits,
                   scdist=scdist, cdist=cdist)
@@ -306,10 +308,13 @@ def render_packed(cams: torch.Tensor, prims: torch.Tensor, height: int, width: i
     elif form == 3 and num_prims != g * CLUSTER_K:
         raise ValueError(f"clustered form needs M == {CLUSTER_K}*G, got "
                          f"M={num_prims}, G={g}")
-    lib = load_library()
     if visits is not None:
-        nblk = bsz * num_agents * t * lib.mv_render_blocks_per_tile()
-        _check("visits", visits, i32, (nblk, 2), dev)
+        _check("visits", visits, i32, (bsz, num_agents, height, 2), dev)
+    # the kernel reads rows and boxes as 16-byte vectors and bulk-copies them
+    for name, x in (("prims", prims), ("clusters", clusters), ("sclusters", sclusters)):
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"{name}: data must start at a multiple of 16 bytes")
+    lib = load_library()
     kc = _device_constants(height, width, str(dev))
     out = torch.empty((bsz, num_agents, height, width), dtype=i32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -328,10 +333,19 @@ def render_packed(cams: torch.Tensor, prims: torch.Tensor, height: int, width: i
 
 
 def new_visits(cams: torch.Tensor, height: int) -> torch.Tensor:
-    """Zeroed int32 [sub-blocks, 2] buffer for render_packed(visits=...)."""
-    lib = load_library()
-    nblk = cams.shape[0] * cams.shape[1] * (height // TILE_H) * lib.mv_render_blocks_per_tile()
-    return torch.zeros((nblk, 2), dtype=torch.int32, device=cams.device)
+    """Zeroed int32 [B, A, H, 2] buffer for render_packed(visits=...)."""
+    return torch.zeros(cams.shape[:2] + (height, 2), dtype=torch.int32, device=cams.device)
+
+
+def box_reachable_plain(rays: R.Rays, lo, hi, bt: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel's cluster vote predicate (csrc/render.cu
+    box_reachable): can a ray of `rays` still find a hit closer than its depth
+    `bt` inside the box (lo, hi: 3-sequences broadcastable to the rays)? The
+    slab interval of ops/raycast.py with no near-plane term, SLACK on the
+    depth."""
+    tmin, tmax = R.slab_interval(lo, hi, rays.oxix, rays.oyiy, rays.oziz,
+                                 rays.ix, rays.iy, rays.iz)[:2]
+    return (tmax >= tmin) & (tmax > 0) & (tmin < bt + SLACK)
 
 
 def cluster_row_mask(clbits: torch.Tensor, num_prims: int) -> torch.Tensor:

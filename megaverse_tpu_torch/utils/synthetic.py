@@ -100,6 +100,79 @@ def synthetic_cams(seed: int, prims: np.ndarray, num_agents: int = 4) -> np.ndar
     return cams
 
 
+def synthetic_far(seed: int, num_envs: int = 8, num_agents: int = 4, height: int = 72,
+                  width: int = 128):
+    """(prims float32 [num_envs, 64, 12], cams float32 [num_envs, num_agents,
+    8]) whose hits lie near the far plane and whose rays graze box faces: the
+    inputs on which the 0.01 slack of the kernel's distance bounds and box
+    votes is tightest.
+
+    Per env, around one eye: four floor slabs 2.0-2.3 m below it and some
+    100 m out (near-horizontal rays meet them), 36 boxes 95-125 m away in the view
+    direction whose top or bottom face lies at the eye's height or whose x or
+    z face passes through the eye, and one 8-row run each of cones (both
+    orientations), ellipsoids and cylinders as far out; about one row in ten
+    is dead. Agent 0's pitch makes the pixel row just above the middle look
+    exactly level (its rays run along the faces at eye height; row 35 of
+    72), agent 2's a row higher up (20 of 72); agent 1 looks level, the
+    others at small random pitches."""
+    rng = np.random.default_rng(seed)
+    pal = _packed_palette()
+    tan_h = np.tan(np.deg2rad(C.CAMERA_FOV_DEG / 2))
+    tan_v = tan_h * height / width
+    level = lambda row: -np.arctan((1.0 - (row + 0.5) / height * 2.0) * tan_v)
+    prims = np.empty((num_envs, 64, ROW_W), np.float32)
+    cams = np.zeros((num_envs, num_agents, 8), np.float32)
+    for b in range(num_envs):
+        eye = np.array([rng.uniform(-3, 3), rng.uniform(1.2, 2.0), rng.uniform(-3, 3)])
+        heading = rng.uniform(-np.pi, np.pi)
+        rows = []
+
+        def add(ptype, a, bb, c=(0.0, 0.0, 0.0)):
+            live = float(ptype) if rng.random() >= 0.1 else -1.0
+            rows.append([live, *a, *bb, pal[rng.integers(1, len(pal))], *c, 0.0])
+
+        def far_point():
+            phi = heading + rng.uniform(-0.7, 0.7)
+            d = rng.uniform(95.0, 125.0)
+            return eye + d * np.array([-np.sin(phi), 0.0, -np.cos(phi)])
+
+        drop = rng.uniform(2.0, 2.3)
+        for _ in range(4):
+            ctr = far_point()
+            lo, hi = ctr - [25.0, 0.0, 25.0], ctr + [25.0, 0.0, 25.0]
+            lo[1], hi[1] = eye[1] - drop - 1.0, eye[1] - drop
+            rows.append([0.0, *lo, *hi, pal[1], 0.0, 0.0, 0.0, 0.0])
+        for k in range(36):
+            ctr, he = far_point(), rng.uniform(1.0, 8.0, size=3)
+            lo, hi = ctr - he, ctr + he
+            # a horizontal face at eye height, or the vertical face across
+            # the view direction's smaller offset through the eye
+            across = 0 if abs(ctr[0] - eye[0]) < abs(ctr[2] - eye[2]) else 2
+            axis, side = (1, 1, across, across)[k % 4], k % 8 < 4
+            if side:
+                lo[axis] = eye[axis]
+                hi[axis] = eye[axis] + 2.0 * he[axis]
+            else:
+                hi[axis] = eye[axis]
+                lo[axis] = eye[axis] - 2.0 * he[axis]
+            add(0, lo, hi)
+        for k in range(8):
+            ctr = far_point() + [0.0, rng.uniform(-1.5, 1.5), 0.0]
+            add(3 + k % 2, ctr, rng.uniform(0.3, 2.0, size=3))
+        for ptype in (1, 2):
+            for _ in range(8):
+                ctr = far_point() + [0.0, rng.uniform(-1.5, 1.5), 0.0]
+                add(ptype, ctr, rng.uniform(0.3, 2.0, size=3))
+        prims[b] = np.asarray(rows, np.float32)
+        for a in range(num_agents):
+            pitch = {0: level(height // 2 - 1), 1: 0.0, 2: level(height * 5 // 18)}.get(
+                a, rng.uniform(-0.05, 0.05))
+            yaw = heading + rng.uniform(-0.2, 0.2)
+            cams[b, a] = [*eye, yaw, pitch, rng.uniform(0.0, 1.0), 0.0, 0.0]
+    return prims, cams
+
+
 def form_tables(cams, prims, height: int, width: int, seed: int = 0) -> dict:
     """The tables of every culled form of the render kernel for one (cams
     [B, A, 8], prims [B, M, 12]; torch tensors on one device): case -> keyword

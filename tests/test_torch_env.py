@@ -31,6 +31,8 @@ from megaverse_tpu_torch.scenarios import make_scenario as t_make_scenario
 from megaverse_tpu_torch.types import tree_leaves, tree_map
 from megaverse_tpu_torch.utils.refrng import Rng as TRng, episode_reseed as t_episode_reseed
 
+import torch_port_checks  # noqa: F401  (one intra-op torch thread)
+
 F, B_, L, R_ = C.ACTION_FORWARD, C.ACTION_BACKWARD, C.ACTION_LEFT, C.ACTION_RIGHT
 LL, LR, LD = C.ACTION_LOOK_LEFT, C.ACTION_LOOK_RIGHT, C.ACTION_LOOK_DOWN
 J, I = C.ACTION_JUMP, C.ACTION_INTERACT

@@ -19,6 +19,8 @@ from megaverse_tpu.types import GridConfig as JGridConfig
 from megaverse_tpu_torch.ops import grid as TG
 from megaverse_tpu_torch.types import GridConfig as TGridConfig
 
+import torch_port_checks  # noqa: F401  (one intra-op torch thread)
+
 DIMS = {
     "y8": ((16, 8, 16), (-4.0, -2.0, -4.0)),
     "y32": ((6, 32, 5), (0.0, 0.0, 0.0)),        # top cell lands on bit 31

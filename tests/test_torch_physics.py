@@ -27,6 +27,8 @@ from megaverse_tpu_torch.ops import grid as TG
 from megaverse_tpu_torch.ops import physics as TP
 from megaverse_tpu_torch.types import AgentState as TAgentState, GridConfig as TGridConfig
 
+import torch_port_checks  # noqa: F401  (one intra-op torch thread)
+
 DIMS, ORIGIN = (24, 12, 24), (-4.0, -2.0, -4.0)
 JCFG = JGridConfig(dims=DIMS, voxel_size=1.0, origin=ORIGIN)
 TCFG = TGridConfig(dims=DIMS, voxel_size=1.0, origin=ORIGIN)

@@ -37,6 +37,8 @@ from megaverse_tpu_torch.scenarios import make_scenario as t_make_scenario
 from megaverse_tpu_torch.scenarios.tower_building import TowerState
 from megaverse_tpu_torch.utils.synthetic import synthetic_cams, synthetic_prims
 
+import torch_port_checks  # noqa: F401  (one intra-op torch thread)
+
 H, W = 24, 128
 CAM_OFF = np.float32(C.AGENT_BODY_OFFSET_Y + C.AGENT_CAMERA_OFFSET_Y)
 

@@ -49,6 +49,8 @@ from megaverse_tpu_torch.ops import raycast as TR
 from megaverse_tpu_torch.ops import raycast_cuda as TRC
 from megaverse_tpu_torch.utils.synthetic import form_tables, synthetic_cams, synthetic_prims
 
+import torch_port_checks  # noqa: F401  (one intra-op torch thread)
+
 H, W = 24, 128
 CAM_OFF = np.float32(C.AGENT_BODY_OFFSET_Y + C.AGENT_CAMERA_OFFSET_Y)
 CASES = ["b3", "b4_agent", "b4_agent_dist", "b4_tile", "b4_shuffled", "b5"]

@@ -26,6 +26,11 @@ from megaverse_tpu_torch import convert
 from megaverse_tpu_torch.scenarios import make_scenario as t_make_scenario
 from megaverse_tpu_torch.utils.refrng import Rng as TRng, episode_reseed as t_episode_reseed
 
+# The port tests' tensors are small: one intra-op thread runs them faster than
+# many and leaves the cores to the other test workers. Every port test module
+# imports this one.
+torch.set_num_threads(1)
+
 F, B_, L, R_ = C.ACTION_FORWARD, C.ACTION_BACKWARD, C.ACTION_LEFT, C.ACTION_RIGHT
 LL, LR, LD = C.ACTION_LOOK_LEFT, C.ACTION_LOOK_RIGHT, C.ACTION_LOOK_DOWN
 J, I = C.ACTION_JUMP, C.ACTION_INTERACT
