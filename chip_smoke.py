@@ -10,7 +10,8 @@ megaverse_tpu_torch/csrc with nvcc, then
      plain PyTorch version ON THE CARD: a synthetic table with live rows of
      every primitive type (reward indicators off and on), a synthetic table
      whose hits lie 90-125 m out and whose rays graze box faces (where the
-     0.01 slack of the distance bounds and box votes is tightest), and the
+     0.01 slack of the distance bounds and box votes is tightest), a table of
+     571 clusters (more than the kernel stages at once), and the
      states of Collect (64 envs x 2 agents), TowerBuilding (64 x 4) and
      Empty (64 x 2, a table shorter than 8 clusters) after 20 random steps. B1 (unculled) vs
      plain: at most 1 per colour channel on fewer than 1e-4 of the pixels (the
@@ -35,10 +36,10 @@ megaverse_tpu_torch/csrc with nvcc, then
      the form the mode selects, 0 for the others. The kernels are then held
      against the plain version once more on the full-width states these runs
      end on (comparison launches are not counted);
-  4. times every form and its plain version at the Collect 1024 x 1 shape (B1
-     and B2 also at the TowerBuilding 1024 x 1 shape) and prints the `kernels`
-     line (times, launches, largest error, roofline bound, clusters run per
-     pixel).
+  4. times every form and its plain version at the Collect 1024 x 1 shape
+     (B6 over B2 and over B3; B1, B2, B3 and B6 over B2 also at the
+     TowerBuilding 1024 x 1 shape) and prints the `kernels` line (times,
+     launches, largest error, roofline bound, clusters run per pixel).
 
 `--phase kernels` stops after step 2.
 
@@ -51,6 +52,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -98,6 +100,28 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def ptxas_summary(log: str) -> dict:
+    """`nvcc -Xptxas -v` output -> {"B<form>" or "B<form> merged": "<n>
+    registers, <s> B spill stores"}, one entry per instantiation of the
+    kernel template."""
+    out, name, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"render_kernelILi(\d)ELb([01])E", m.group(1))
+            name = k and f"B{k.group(1)}" + (" merged" if k.group(2) == "1" else "")
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = f"{m.group(1)} registers, {spill} B spill stores"
+            name = None
+    return out
 
 
 def channel_diff(a: torch.Tensor, b: torch.Tensor):
@@ -171,8 +195,7 @@ class Smoke:
               "nvcc": nvcc[-2] if len(nvcc) >= 2 else nvcc,
               "build_seconds": RC.BUILD_INFO["seconds"],
               "load_seconds": time.perf_counter() - t0,
-              "ptxas": [ln for ln in (RC.BUILD_INFO["log"] or "").splitlines()
-                        if "registers" in ln or "spill" in ln][:24]})
+              "ptxas": ptxas_summary(RC.BUILD_INFO["log"] or "")})
 
     # ------------------------------------------------------------- phase 2
     def compare(self, label, cams, prims, height, ui, plain_cases=None) -> None:
@@ -238,6 +261,15 @@ class Smoke:
             self.compare(f"synthetic_all_types_ui={int(ui)}", cams, prims, 72, ui)
         prims_np, cams_np = synthetic_far(seed=7, num_envs=16, num_agents=4)
         self.compare("synthetic_far_plane_grazing", torch.from_numpy(cams_np).to(self.dev),
+                     torch.from_numpy(prims_np).to(self.dev), 72, False)
+        # more clusters than the kernel stages at once: B3 takes its boxes in
+        # two chunks, B6 over B2 streams what a frame cannot stage
+        prims_np = np.concatenate([synthetic_prims(seed=s, num_envs=2) for s in range(55)],
+                                  axis=1)
+        cams_np = synthetic_cams(seed=7, prims=prims_np, num_agents=4)
+        if prims_np.shape[1] <= 8 * 512:
+            raise AssertionError("the large table must hold more than 512 clusters")
+        self.compare("synthetic_large_table", torch.from_numpy(cams_np).to(self.dev),
                      torch.from_numpy(prims_np).to(self.dev), 72, False)
 
         rng = np.random.default_rng(1)
@@ -408,7 +440,8 @@ class Smoke:
         cams, prims, ui = base["cams"], base["prims"], base["ui_indicators"]
         cases = {"b1": dict(prims=prims)}
         cases.update(self.form_tables(cams, prims, height, 128))
-        cases["b6_over_b2"] = dict(merge_tiles=True, **cases["b2"])
+        for form in ("b2", "b3"):
+            cases["b6_over_" + form] = dict(merge_tiles=True, **cases[form])
         bsz, agents = cams.shape[0], cams.shape[1]
         pixels = bsz * agents * height * 128
         nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts
@@ -472,14 +505,14 @@ class Smoke:
 
     def kernels_line(self, tower, collect) -> None:
         all_cases = ("b1", "b2", "b3", "b4_agent", "b4_agent_dist", "b4_tile",
-                     "b4_shuffled", "b5", "b6_over_b2")
+                     "b4_shuffled", "b5", "b6_over_b2", "b6_over_b3")
         at_collect, meta_c = self.time_forms(collect, all_cases)
-        at_tower, meta_t = self.time_forms(tower, ("b1", "b2"))
+        at_tower, meta_t = self.time_forms(tower, ("b1", "b2", "b3", "b6_over_b2"))
         emit({"phase": "kernel_times", "scenario": "Collect", **meta_c, "cases": at_collect})
         emit({"phase": "kernel_times", "scenario": "TowerBuilding", **meta_t,
               "cases": at_tower})
         # one row per kernel form; B4 is read at the per-tile lists, B6 at the
-        # merged bit-walk: the variants the main path ran
+        # merged bit-walk: the variants the main path ran (B6 over B3 beside it)
         rows = []
         for name, case in (("render_b1", "b1"), ("render_b2", "b2"), ("render_b3", "b3"),
                            ("render_b4", "b4_tile"), ("render_b5", "b5"),
@@ -496,6 +529,9 @@ class Smoke:
                 t = at_tower[case]
                 row.update(ms_towerbuilding=t["ms"], plain_ms_towerbuilding=t["plain_ms"],
                            bound_ms_towerbuilding=t["bound_ms"])
+            if name == "render_b6":
+                row.update(ms_over_b3=at_collect["b6_over_b3"]["ms"],
+                           bound_ms_over_b3=at_collect["b6_over_b3"]["bound_ms"])
             rows.append(row)
         for r in rows:
             if r["launches"] < 1:

@@ -11,14 +11,19 @@
 //       pixels' depths (block vote), run its 8 rows from shared memory,
 //       tie-break carry on the row index, depth bound refreshed after each
 //       list entry that ran rows;
-//   B3  clustered, in table order: every cluster's box is slab-tested per
-//       pixel against the current depths, a block-wide vote decides whether
-//       its rows run;
+//   B3  clustered, in table order: the env's live cluster boxes, staged in
+//       shared memory, are slab-tested per pixel 32 at a time against the
+//       current depths, one block-wide vote per batch; the rows of the
+//       clusters that passed are staged together and each runs if a second
+//       vote, at the depths of that moment, still passes it;
 //   B4  B3 through a sorted list (per agent or per tile), optionally ending
 //       early on the list's distance bounds;
 //   B5  two-level: per-tile lists over superclusters, members re-tested;
-//   B6  any of B1-B5 with ONE block per (env, agent) frame that loops the
-//       frame's sub-blocks (MERGED = true) instead of one block per sub-block.
+//   B6  any of B1-B5 launched frame by frame (MERGED = true): resident blocks
+//       take whole (env, agent) frames from a queue and loop their
+//       sub-blocks, staging what the frame shares once (B2: the clusters its
+//       tiles can visit; B3: the env's boxes); idle blocks join the frames
+//       still running.
 // All write packed RGB int32 [B, A, H, 128].
 //
 // What bounds it on this card: arithmetic, not memory. A frame reads a few KB
@@ -27,15 +32,17 @@
 // it:
 //  - culling (B2-B5): the tables and the block votes cut the rows a pixel
 //    visits from M to the handful in front of the nearest occluder;
-//  - two pixels per thread (B1, B2): a row read once from shared memory, its
+//  - two pixels per thread (B1-B3): a row read once from shared memory, its
 //    type switch and the walk's control serve two rays;
-//  - asynchronous staging (B1, B2): one thread hands the next rows to the
+//  - few barriers: B3 votes on 32 clusters per barrier and never on a dead
+//    one (Collect's bucketed table is mostly dead slots);
+//  - asynchronous staging (B1-B3, B6): one thread hands the next rows to the
 //    Tensor Memory Accelerator (cp.async.bulk, completion on an mbarrier)
 //    while the block computes on the current ones, and rows are read as three
 //    16-byte vectors from shared memory instead of a dozen scalar loads.
 //
 // Block shape: 256 threads = 2 lanes of 128 columns. With P pixels per thread
-// (`pixels_per_thread<FORM>`: 2 for B1 and B2, 1 for B3-B5) a block covers
+// (`pixels_per_thread<FORM>`: 2 for B1-B3, 1 for B4 and B5) a block covers
 // 2 P pixel rows of an 8-row tile (a "sub-block"), so a tile has 8 / (2 P)
 // sub-blocks. The reference decides per 8-row tile whether any ray
 // can reach a cluster; here the vote (__syncthreads_or) and the depth bound
@@ -77,7 +84,13 @@ constexpr int SLOT_FLOATS = CLUSTER_FLOATS + BOX_FLOATS;
 constexpr int B2_SLOTS = 3;                  // staged clusters (ring)
 constexpr int B1_CHUNK = 128;                // rows per staged chunk of B1
 constexpr int B1_STAGES = 2;
-constexpr int NBARS = 4;                     // >= B2_SLOTS, B1_STAGES
+constexpr int B3_BATCH = 32;                 // clusters per B3 vote (one mask bit each)
+constexpr int BOX_CHUNK = 512;               // cluster boxes B3 stages at a time (16 KB)
+constexpr int FRAME_K = 64;                  // clusters B6 over B2 stages per frame (26 KB)
+constexpr int NBARS = 4;                     // >= B2_SLOTS + 1, B1_STAGES
+constexpr int BAR_BOXES = 0;                 // B3: the box chunk
+constexpr int BAR_ROWS = 1;                  // B3: the voted clusters' rows
+constexpr int BAR_FRAME = 3;                 // B6 over B2: the frame's clusters
 
 // Indices into the constant table built by ops/raycast.py render_constants().
 enum {
@@ -471,6 +484,27 @@ __device__ __forceinline__ void run_cluster(const Ray (&r)[P], const float* rows
   }
 }
 
+// Order-preserving compaction over the block: the place of this thread's
+// `keep` among the kept ones of threads with a lower index, counted from
+// `total`, which grows by the block's count. Every thread must call it; `cnt`
+// holds NWARPS ints.
+__device__ __forceinline__ int block_rank(bool keep, int& total, int* cnt) {
+  const unsigned bal = __ballot_sync(0xffffffffu, keep);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) cnt[warp] = __popc(bal);
+  __syncthreads();
+  int off = total, sum = 0;
+#pragma unroll
+  for (int k = 0; k < NWARPS; ++k) {
+    const int x = cnt[k];
+    off += k < warp ? x : 0;
+    sum += x;
+  }
+  __syncthreads();  // cnt is read before its next use
+  total += sum;
+  return off + __popc(bal & ((1u << lane) - 1u));
+}
+
 // Maximum of v over the block, returned to every thread. Every thread of the
 // block must call it.
 __device__ __forceinline__ float block_max(float v, float* smem) {
@@ -734,8 +768,9 @@ __device__ __forceinline__ void bar_wait(uint64_t* bars, int slot, uint32_t& pha
 // Traversals. One `trace_*` per form of the reference kernel; each handles one
 // sub-block (2 P pixel rows) and leaves the closest hit of every pixel in `c`.
 // Every loop bound and every branch into a row below depends only on table
-// values, on a block-wide vote (__syncthreads_or) or on block_max, so all
-// threads of a block take the same path and reach the same barriers.
+// values or shared-memory words every thread reads alike, on a block-wide
+// vote (__syncthreads_or, B3's vote words) or on block_max, so all threads of
+// a block take the same path and reach the same barriers.
 // ---------------------------------------------------------------------------
 enum { FORM_B1 = 1, FORM_B2, FORM_B3, FORM_B4, FORM_B5 };
 
@@ -753,6 +788,8 @@ struct Args {
   const float* __restrict__ kc;         // render constants
   int* __restrict__ out;                // [B, A, H, 128]
   int* __restrict__ visits;             // [B, A, H, 2] or null
+  int* __restrict__ work;               // [B * A + 1] zeros: B6's work queue
+  int num_frames;                       // B * A
   int num_agents, height, num_prims, num_clusters, num_words;
   int list_len;                         // L: entries per list of `order`
   int per_tile;                         // lists per (env, agent, tile)
@@ -767,12 +804,21 @@ struct Walk {
   int ran_aabb, ran_other;   // clusters run, by tag (for `visits`)
 };
 
-// Shared memory a block's traversal works in.
+// Shared memory a block's traversal works in, and what it holds across the
+// sub-blocks of a merged launch.
 struct Stage {
-  unsigned char* dyn;   // dynamic shared memory (B1: row chunks; B2: ring + walk tables)
+  unsigned char* dyn;   // dynamic shared memory (B1: row chunks; B2: ring + walk
+                        // tables, B6 over B2 also the frame's clusters; B3: boxes,
+                        // live list, rows of a vote)
   uint64_t* bars;       // NBARS mbarriers
   float* red;           // NWARPS floats for block_max
+  int* cnt;             // NWARPS ints for block_rank
+  unsigned* votes;      // 2 * NWARPS vote words (B3)
+  int* bcast;           // one int thread 0 hands to the block
   uint32_t phase;       // parity bit per barrier
+  int key;              // what `dyn` holds across sub-blocks, -1 = nothing:
+                        // B3 env * chunks + chunk; B6 over B2 the frame
+  int nlive;            // B3: live clusters of the staged chunk
 };
 
 __device__ __forceinline__ void count_visit(Walk& w, const Box& bx) {
@@ -837,6 +883,53 @@ __device__ __forceinline__ void trace_b1(const Args& A, Walk& w, const Ray (&ray
   }
 }
 
+// B6 over B2: the clusters the frame's walks can visit, staged once per frame.
+// They are the union over the frame's tiles of the clusters whose tile bit is
+// set and whose eye distance is within the far plane (the walk visits no
+// other). The first FRAME_K of them, in table order, are copied (rows + box,
+// 416 bytes each) into `fst`; `map[gc]` is a cluster's slot there, or -1 for a
+// cluster the walk then streams through the ring as the tiled launch does.
+__device__ __forceinline__ void stage_frame_b2(const Args& A, const Walk& w, Stage& s,
+                                               float* fst, short* map, short* slot_gc) {
+  const int G = A.num_clusters;
+  const int tiles = A.height / TILE_H;
+  __syncthreads();  // the previous frame's walks are done with fst and map
+  const unsigned* bits = reinterpret_cast<const unsigned*>(A.clbits) +
+                         w.ba * tiles * (size_t)A.num_words;
+  int total = 0;
+  for (int g0 = 0; g0 < G; g0 += NTHREADS) {
+    const int gc = g0 + threadIdx.x;
+    bool want = false;
+    if (gc < G && __ldg(A.cdist + w.ba * G + gc) <= FAR_T + SLACK) {
+      unsigned u = 0;
+      for (int t = 0; t < tiles; ++t) u |= __ldg(bits + t * A.num_words + (gc >> 5));
+      want = (u >> (gc & 31)) & 1u;
+    }
+    const int k = block_rank(want, total, s.cnt);
+    const bool kept = want && k < FRAME_K;
+    if (gc < G) map[gc] = kept ? (short)k : (short)-1;
+    if (kept) slot_gc[k] = (short)gc;
+  }
+  __syncthreads();  // slot_gc is complete
+  const int n = min(total, FRAME_K);
+  if (n > 0) {
+    if (threadIdx.x < 32) {
+      if (threadIdx.x == 0) bar_expect(s.bars + BAR_FRAME, (uint32_t)n * SLOT_FLOATS * 4);
+      __syncwarp();
+      for (int k = threadIdx.x; k < n; k += 32) {
+        const int gc = slot_gc[k];
+        float* dst = fst + k * SLOT_FLOATS;
+        bulk_load(dst, w.table + (size_t)gc * CLUSTER_FLOATS, CLUSTER_FLOATS * 4,
+                  s.bars + BAR_FRAME);
+        bulk_load(dst + CLUSTER_FLOATS, w.ctab + (size_t)gc * BOX_FLOATS, BOX_FLOATS * 4,
+                  s.bars + BAR_FRAME);
+      }
+    }
+    bar_wait(s.bars, BAR_FRAME, s.phase);
+  }
+  s.key = (int)w.ba;
+}
+
 // B2: bit-walk over the tile's front-to-back supercluster list.
 //
 // The tile's walk tables (sclist, scdist, clbits, cdist) are staged in shared
@@ -850,17 +943,23 @@ __device__ __forceinline__ void trace_b1(const Args& A, Walk& w, const Ray (&ray
 // costs one copy, never a pixel. Before its rows run, the candidate's box is slab-tested
 // against every pixel's current depth (box_reachable, __syncthreads_or): a
 // cluster no pixel can reach holds no row whose t could beat or tie any
-// pixel's best.
-template <int P>
+// pixel's best. MERGED (B6): the candidates the frame has staged
+// (stage_frame_b2) are read where they lie, without a copy or a wait.
+template <int P, bool MERGED>
 __device__ __forceinline__ void trace_b2(const Args& A, Walk& w, const Ray (&ray)[P],
                                          Carry (&c)[P], Stage& s) {
   const int G = A.num_clusters;
   const int S = G / SUPER_K;
-  float* ring = reinterpret_cast<float*>(s.dyn);
+  float* fst = reinterpret_cast<float*>(s.dyn);
+  float* ring = fst + (MERGED ? FRAME_K * SLOT_FLOATS : 0);
   int* sl = reinterpret_cast<int*>(ring + B2_SLOTS * SLOT_FLOATS);
   float* sd = reinterpret_cast<float*>(sl + S);
   unsigned* cw = reinterpret_cast<unsigned*>(sd + S);
   float* cd = reinterpret_cast<float*>(cw + A.num_words);
+  short* map = reinterpret_cast<short*>(cd + G);
+  if (MERGED && s.key != (int)w.ba) stage_frame_b2(A, w, s, fst, map, map + G);
+  // staged slot of cluster gc, or -1: it comes through the ring
+  auto staged = [&](int gc) -> int { return MERGED ? (int)map[gc] : -1; };
 
   __syncthreads();  // a merged launch's previous sub-block is done with all of it
   {
@@ -902,8 +1001,8 @@ __device__ __forceinline__ void trace_b2(const Args& A, Walk& w, const Ray (&ray
   };
   auto cluster_of = [&](int q) { return sl[q / SUPER_K] * SUPER_K + q % SUPER_K; };
   auto fetch = [&](int q, int slot) {
-    if (threadIdx.x == 0) {
-      const int gc = cluster_of(q);
+    const int gc = cluster_of(q);
+    if (threadIdx.x == 0 && staged(gc) < 0) {
       float* dst = ring + slot * SLOT_FLOATS;
       bar_expect(s.bars + slot, SLOT_FLOATS * 4);
       bulk_load(dst, w.table + (size_t)gc * CLUSTER_FLOATS, CLUSTER_FLOATS * 4, s.bars + slot);
@@ -914,7 +1013,8 @@ __device__ __forceinline__ void trace_b2(const Args& A, Walk& w, const Ray (&ray
 
   // Two candidates are always in flight: candidate n sits in slot
   // n % B2_SLOTS and n + 1 in the next; n + 2 is fetched once every thread
-  // has voted on n, i.e. is done with n - 1's slot, which it takes.
+  // has voted on n, i.e. is done with n - 1's slot, which it takes. A staged
+  // candidate keeps its place in this count but takes no copy and no wait.
   int cur = next(0, maxt);
   int nxt = cur >= 0 ? next(cur + 1, maxt) : -1;
   if (cur >= 0) fetch(cur, 0);
@@ -924,16 +1024,18 @@ __device__ __forceinline__ void trace_b2(const Args& A, Walk& w, const Ray (&ray
 #pragma unroll 1
   while (cur >= 0) {
     const int slot = n % B2_SLOTS;
-    bar_wait(s.bars, slot, s.phase);
+    const int gc = cluster_of(cur);
+    const int k = staged(gc);
+    if (k < 0) bar_wait(s.bars, slot, s.phase);
     const int e = cur / SUPER_K;
     if (!(sd[e] <= maxt + SLACK)) {
       // the bound fell below this supercluster since it was found: the walk
       // is over; drain the copy in flight before the slots are reused
-      if (nxt >= 0) bar_wait(s.bars, (n + 1) % B2_SLOTS, s.phase);
+      if (nxt >= 0 && staged(cluster_of(nxt)) < 0)
+        bar_wait(s.bars, (n + 1) % B2_SLOTS, s.phase);
       break;
     }
-    const int gc = cluster_of(cur);
-    const float* slot_rows = ring + slot * SLOT_FLOATS;
+    const float* slot_rows = k >= 0 ? fst + k * SLOT_FLOATS : ring + slot * SLOT_FLOATS;
     const Box bx = load_box<true>(slot_rows + CLUSTER_FLOATS);
     const bool want = cd[gc] <= maxt + SLACK;
     const bool vote = __syncthreads_or(want && any_reachable<P>(ray, bx, c));
@@ -956,20 +1058,101 @@ __device__ __forceinline__ void trace_b2(const Args& A, Walk& w, const Ray (&ray
   }
 }
 
-// B3: clustered, in table order. Per cluster one slab test of its box against
-// the pixel's current depth, a block-wide vote, then the rows. Strict carry
-// from +INF: rows run in table order, and a skipped row could at best tie.
+// B3: clustered, in table order, strict carry from +INF (a skipped row could
+// at best tie, and in table order a tie keeps the earlier row).
+//
+// The env's cluster boxes are staged in shared memory by one bulk copy (in
+// chunks of BOX_CHUNK; a merged launch keeps them across the frame's
+// sub-blocks) and listed once: dead boxes (low corner at +INF) never enter
+// the list, so they cost no test and no barrier. The live list is voted on
+// B3_BATCH clusters at a time: every thread slab-tests its pixels against the
+// batch's boxes at its current depths, which gives one bit per cluster, and
+// the block ORs the masks (a warp reduction, one word per warp, one barrier).
+// Depths only fall, so a vote taken at the batch's start passes every cluster
+// a later vote would pass; a cluster no pixel can reach holds no row that
+// beats or ties any pixel's best. The rows of the clusters that passed are
+// bulk-copied together (384 bytes each) and run in table order; before each
+// runs, its box is voted on again at the depths of that moment
+// (__syncthreads_or), which drops the clusters that an earlier one of the
+// batch has since hidden.
 template <int P>
-__device__ __forceinline__ void trace_b3(const Args& A, Walk& w, const Ray (&ray)[P],
+__device__ __forceinline__ void trace_b3(const Args& A, Walk& w, int env, const Ray (&ray)[P],
                                          Carry (&c)[P], Stage& s) {
+  const int G = A.num_clusters;
+  const int cap = min(G, BOX_CHUNK);
+  float* boxes = reinterpret_cast<float*>(s.dyn);
+  float* ring = boxes + cap * BOX_FLOATS;
+  int* live = reinterpret_cast<int*>(ring + B3_BATCH * CLUSTER_FLOATS);
+  const int chunks = (G + BOX_CHUNK - 1) / BOX_CHUNK;
 #pragma unroll
   for (int p = 0; p < P; ++p) c[p].t = INF_T;
-  const int groups = A.num_prims / CLUSTER_K;
-  for (int g = 0; g < groups; ++g) {
-    const Box bx = load_box<false>(w.ctab + (size_t)g * BOX_FLOATS);
-    if (__syncthreads_or(any_reachable<P>(ray, bx, c))) {
-      run_cluster<false, P, false>(ray, w.table + (size_t)g * CLUSTER_FLOATS, g * CLUSTER_K, c);
-      count_visit(w, bx);
+  int votes = 0;
+#pragma unroll 1
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int g0 = ch * BOX_CHUNK;
+    const int key = env * chunks + ch;
+    if (s.key != key) {
+      const int n = min(BOX_CHUNK, G - g0);
+      __syncthreads();  // every thread is done with the boxes and list held so far
+      if (threadIdx.x == 0) {
+        bar_expect(s.bars + BAR_BOXES, (uint32_t)n * BOX_FLOATS * 4);
+        bulk_load(boxes, w.ctab + (size_t)g0 * BOX_FLOATS, (uint32_t)n * BOX_FLOATS * 4,
+                  s.bars + BAR_BOXES);
+      }
+      bar_wait(s.bars, BAR_BOXES, s.phase);
+      int total = 0;
+      for (int i0 = 0; i0 < n; i0 += NTHREADS) {
+        const int i = i0 + threadIdx.x;
+        const bool lv = i < n && boxes[i * BOX_FLOATS] < 1e29f;
+        const int k = block_rank(lv, total, s.cnt);
+        if (lv) live[k] = i;
+      }
+      __syncthreads();  // the list is complete
+      s.key = key;
+      s.nlive = total;
+    }
+#pragma unroll 1
+    for (int base = 0; base < s.nlive; base += B3_BATCH) {
+      const int nb = min(B3_BATCH, s.nlive - base);
+      unsigned m = 0;
+#pragma unroll 1
+      for (int j = 0; j < nb; ++j) {
+        const Box bx = load_box<true>(boxes + live[base + j] * BOX_FLOATS);
+        if (any_reachable<P>(ray, bx, c)) m |= 1u << j;
+      }
+      m = __reduce_or_sync(0xffffffffu, m);
+      // two sets of vote words: the next vote writes the other set, and the
+      // one after it follows a barrier that every reader of this one passed
+      unsigned* vw = s.votes + (votes & 1) * NWARPS;
+      ++votes;
+      if ((threadIdx.x & 31) == 0) vw[threadIdx.x >> 5] = m;
+      __syncthreads();
+      m = 0;
+#pragma unroll
+      for (int k = 0; k < NWARPS; ++k) m |= vw[k];
+      if (m == 0) continue;
+      // the ring's slot j takes the batch's cluster j; every thread is done
+      // with the previous batch's rows (it has passed the barrier above)
+      if (threadIdx.x == 0) {
+        bar_expect(s.bars + BAR_ROWS, (uint32_t)__popc(m) * CLUSTER_FLOATS * 4);
+        for (unsigned r = m; r; r &= r - 1) {
+          const int j = __ffs(r) - 1;
+          bulk_load(ring + j * CLUSTER_FLOATS,
+                    w.table + (size_t)(g0 + live[base + j]) * CLUSTER_FLOATS,
+                    CLUSTER_FLOATS * 4, s.bars + BAR_ROWS);
+        }
+      }
+      bar_wait(s.bars, BAR_ROWS, s.phase);
+#pragma unroll 1
+      while (m) {
+        const int j = __ffs(m) - 1;
+        m &= m - 1;
+        const int gl = live[base + j];
+        const Box bx = load_box<true>(boxes + gl * BOX_FLOATS);
+        if (!__syncthreads_or(any_reachable<P>(ray, bx, c))) continue;
+        run_cluster<false, P, true>(ray, ring + j * CLUSTER_FLOATS, (g0 + gl) * CLUSTER_K, c);
+        count_visit(w, bx);
+      }
     }
   }
 }
@@ -1040,10 +1223,11 @@ __device__ __forceinline__ void trace_b5(const Args& A, Walk& w, int env, const 
 
 // Pixels per thread of each form. The staged forms share a row read from
 // shared memory and the walk's control between two rays; one or four read
-// slower on the card (PERF.md, "Launch shapes"). B3-B5 were not redesigned.
+// slower on the card (PERF.md, "Launch shapes"). B4 and B5 were not
+// redesigned.
 template <int FORM>
 __host__ __device__ constexpr int pixels_per_thread() {
-  return FORM == FORM_B1 || FORM == FORM_B2 ? 2 : 1;
+  return FORM == FORM_B4 || FORM == FORM_B5 ? 1 : 2;
 }
 
 // Pixel rows of one block: LANES * P. P = 1 gives the 2-row sub-blocks of
@@ -1054,9 +1238,87 @@ __host__ __device__ constexpr int subs_per_tile() {
   return TILE_H / (LANES * P);
 }
 
+// Sub-block `sub` (tile-major) of frame `frame` (env * A + agent): its rays,
+// the form's traversal, the epilogue.
+template <int FORM, bool MERGED>
+__device__ __forceinline__ void render_sub(const Args& A, Stage& s, int frame, int sub) {
+  constexpr int P = pixels_per_thread<FORM>();
+  constexpr int SUBS = subs_per_tile<P>();
+  const int tiles = A.height / TILE_H;
+  const int tile = sub / SUBS;
+  const int part = sub % SUBS;
+  const int a = frame % A.num_agents;
+  const int b = frame / A.num_agents;
+  Walk w;
+  w.ba = (size_t)frame;
+  w.bat = w.ba * tiles + tile;
+  w.table = A.prims + (size_t)b * A.num_prims * ROW_W;
+  w.ctab = A.clusters + (size_t)b * A.num_clusters * BOX_FLOATS;
+  w.ran_aabb = w.ran_other = 0;
+  const float* cam = A.cams + w.ba * 8;
+  const Cam camk = load_cam(cam);
+  const int y0 = tile * TILE_H + part * LANES * P + (threadIdx.x >> 7);
+
+  Pixel px[P];
+  Ray ray[P];
+  Carry c[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    px[p] = make_pixel(b, a, y0 + LANES * p, A.height);
+    ray[p] = make_ray(px[p], camk, A.kc);
+    c[p].idx = A.num_prims;
+    c[p].nx = c[p].ny = c[p].nz = 0.0f;
+    c[p].code = CODE_DIRECT;
+    c[p].c = 0.0f;
+  }
+  if constexpr (FORM == FORM_B1) trace_b1<P>(A, w, ray, c, s);
+  else if constexpr (FORM == FORM_B2) trace_b2<P, MERGED>(A, w, ray, c, s);
+  else if constexpr (FORM == FORM_B3) trace_b3<P>(A, w, b, ray, c, s);
+  else if constexpr (FORM == FORM_B4) trace_b4<P>(A, w, ray, c, s);
+  else trace_b5<P>(A, w, b, ray, c, s);
+
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    epilogue(px[p], ray[p], c[p], cam, A.kc, A.ui_indicators, A.height, A.num_agents, A.out);
+  // Optional measurement output: the clusters whose rows ran for each pixel
+  // row of this sub-block.
+  if (A.visits != nullptr && threadIdx.x == 0) {
+    const int ytop = tile * TILE_H + part * LANES * P;
+    for (int r = 0; r < LANES * P; ++r) {
+      const size_t o = 2 * (w.ba * A.height + ytop + r);
+      A.visits[o + 0] = w.ran_aabb;
+      A.visits[o + 1] = w.ran_other;
+    }
+  }
+}
+
+// Thread 0 takes the next ticket of counter `ctr` and hands it to the block.
+__device__ __forceinline__ int claim(int* ctr, int* bcast) {
+  __syncthreads();  // every thread has read the previous ticket
+  if (threadIdx.x == 0) *bcast = atomicAdd(ctr, 1);
+  __syncthreads();
+  return *bcast;
+}
+
+// The highest frame whose sub-blocks are not all taken yet, or -1.
+__device__ __forceinline__ int find_open(const Args& A, int per_frame, Stage& s) {
+  for (int hi = A.num_frames - 1; hi >= 0; hi -= NTHREADS) {
+    const int f = hi - (int)threadIdx.x;
+    const bool open = f >= 0 && __ldcg(A.work + 1 + f) < per_frame;
+    const float m = block_max(open ? (float)f : -1.0f, s.red);
+    if (m >= 0.0f) return (int)m;
+  }
+  return -1;
+}
+
 // One kernel for every form. Tiled launch (MERGED = false): one block per
-// sub-block, grid B * A * T * subs. Merged launch (B6): one block per (env,
-// agent) frame that loops the frame's T * subs sub-blocks.
+// sub-block, grid B * A * T * subs. Merged launch (B6): a grid of resident
+// blocks takes whole frames from a queue (work[0]) and, within a frame, its
+// sub-blocks in order from the frame's counter (work[1 + frame]); per-frame
+// staging (B2: the frame's clusters; B3: the env's boxes) serves all of
+// them. A block that finds the queue empty joins the latest frame that still
+// has sub-blocks to take, so the launch ends within about one sub-block of
+// its last frame instead of one frame.
 // Registers per thread grow with P: 4 blocks of 256 threads per SM at P = 1,
 // 3 at P = 2.
 template <int FORM, bool MERGED>
@@ -1065,80 +1327,57 @@ render_kernel(const __grid_constant__ Args A) {
   constexpr int P = pixels_per_thread<FORM>();
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ float red[NWARPS];
+  __shared__ int cnt[NWARPS];
+  __shared__ unsigned votes[2 * NWARPS];
+  __shared__ int bcast;
   __shared__ __align__(8) uint64_t bars[NBARS];
-  constexpr int SUBS = subs_per_tile<P>();
-  constexpr bool STAGED = FORM == FORM_B1 || FORM == FORM_B2;
-  const int tiles = A.height / TILE_H;
-  const int per_frame = tiles * SUBS;
-  const int first = MERGED ? blockIdx.x * per_frame : blockIdx.x;
-  const int count = MERGED ? per_frame : 1;
-  Stage s{dyn, bars, red, 0u};
-  if (STAGED) {
-    if (threadIdx.x == 0) {
-      for (int i = 0; i < NBARS; ++i) bar_init(bars + i);
-      bar_init_fence();
-    }
-    __syncthreads();
+  const int per_frame = (A.height / TILE_H) * subs_per_tile<P>();
+  Stage s{dyn, bars, red, cnt, votes, &bcast, 0u, -1, 0};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NBARS; ++i) bar_init(bars + i);
+    bar_init_fence();
   }
+  __syncthreads();
+  if constexpr (!MERGED) {
+    render_sub<FORM, false>(A, s, blockIdx.x / per_frame, blockIdx.x % per_frame);
+  } else {
+    int frame = -1;
 #pragma unroll 1
-  for (int k = 0; k < count; ++k) {
-    int blk = first + k;
-    const int sub = blk % SUBS;
-    blk /= SUBS;
-    const int tile = blk % tiles;
-    blk /= tiles;
-    const int a = blk % A.num_agents;
-    const int b = blk / A.num_agents;
-    Walk w;
-    w.ba = (size_t)b * A.num_agents + a;
-    w.bat = w.ba * tiles + tile;
-    w.table = A.prims + (size_t)b * A.num_prims * ROW_W;
-    w.ctab = A.clusters + (size_t)b * A.num_clusters * BOX_FLOATS;
-    w.ran_aabb = w.ran_other = 0;
-    const float* cam = A.cams + w.ba * 8;
-    const Cam camk = load_cam(cam);
-    const int y0 = tile * TILE_H + sub * LANES * P + (threadIdx.x >> 7);
-
-    Pixel px[P];
-    Ray ray[P];
-    Carry c[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      px[p] = make_pixel(b, a, y0 + LANES * p, A.height);
-      ray[p] = make_ray(px[p], camk, A.kc);
-      c[p].idx = A.num_prims;
-      c[p].nx = c[p].ny = c[p].nz = 0.0f;
-      c[p].code = CODE_DIRECT;
-      c[p].c = 0.0f;
-    }
-    if constexpr (FORM == FORM_B1) trace_b1<P>(A, w, ray, c, s);
-    else if constexpr (FORM == FORM_B2) trace_b2<P>(A, w, ray, c, s);
-    else if constexpr (FORM == FORM_B3) trace_b3<P>(A, w, ray, c, s);
-    else if constexpr (FORM == FORM_B4) trace_b4<P>(A, w, ray, c, s);
-    else trace_b5<P>(A, w, b, ray, c, s);
-
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-      epilogue(px[p], ray[p], c[p], cam, A.kc, A.ui_indicators, A.height, A.num_agents,
-               A.out);
-    // Optional measurement output: the clusters whose rows ran for each pixel
-    // row of this sub-block.
-    if (A.visits != nullptr && threadIdx.x == 0) {
-      const int ytop = tile * TILE_H + sub * LANES * P;
-      for (int r = 0; r < LANES * P; ++r) {
-        const size_t o = 2 * (w.ba * A.height + ytop + r);
-        A.visits[o + 0] = w.ran_aabb;
-        A.visits[o + 1] = w.ran_other;
+    for (;;) {
+      const int sub = frame >= 0 ? claim(A.work + 1 + frame, s.bcast) : per_frame;
+      if (sub < per_frame) {
+        render_sub<FORM, true>(A, s, frame, sub);
+        continue;
       }
+      frame = claim(A.work, s.bcast);
+      if (frame >= A.num_frames) frame = find_open(A, per_frame, s);
+      if (frame < 0) break;
     }
   }
 }
 
+// Dynamic shared memory of a form's launch.
+size_t smem_bytes(int form, int merged, int num_clusters, int num_words) {
+  const size_t g = (size_t)num_clusters;
+  switch (form) {
+    case FORM_B1: return (size_t)B1_STAGES * B1_CHUNK * ROW_W * 4;
+    case FORM_B2: {
+      const size_t walk = 2 * (g / SUPER_K) + num_words + g;
+      const size_t frame = merged ? (size_t)FRAME_K * SLOT_FLOATS * 4 + (g + FRAME_K) * 2 : 0;
+      return ((size_t)B2_SLOTS * SLOT_FLOATS + walk) * 4 + frame;
+    }
+    case FORM_B3: {
+      const size_t cap = g < (size_t)BOX_CHUNK ? g : (size_t)BOX_CHUNK;
+      return (cap * BOX_FLOATS + (size_t)B3_BATCH * CLUSTER_FLOATS + cap) * 4;
+    }
+    default: return 0;
+  }
+}
+
 template <int FORM>
-int launch(const Args& A, int batch, int merged, size_t smem, cudaStream_t stream) {
+int launch(const Args& A, int merged, size_t smem, cudaStream_t stream) {
   constexpr int P = pixels_per_thread<FORM>();
-  const int frames = batch * A.num_agents;
-  if (frames <= 0) return (int)cudaGetLastError();
+  if (A.num_frames <= 0) return (int)cudaGetLastError();
   void (*kern)(const Args) =
       merged ? render_kernel<FORM, true> : render_kernel<FORM, false>;
   if (smem > 48 * 1024) {
@@ -1146,7 +1385,17 @@ int launch(const Args& A, int batch, int merged, size_t smem, cudaStream_t strea
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int grid = merged ? frames : frames * (A.height / TILE_H) * subs_per_tile<P>();
+  int grid = A.num_frames * (A.height / TILE_H) * subs_per_tile<P>();
+  if (merged) {
+    // as many blocks as the card holds at once, at most one per frame
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NTHREADS, smem);
+    if (e != cudaSuccess) return (int)e;
+    grid = min(A.num_frames, max(1, sms * per_sm));
+  }
   kern<<<grid, NTHREADS, smem, stream>>>(A);
   return (int)cudaGetLastError();
 }
@@ -1158,13 +1407,14 @@ extern "C" {
 // Launch form `form` (1..5 = B1..B5) of the renderer, tiled or (merged != 0)
 // as form B6. Every pointer is a device pointer; those a form does not read
 // may be null, and so may `dist` (B4 without early exit) and `visits`.
-// Returns cudaGetLastError() after the launch (0 = accepted, -1 = unknown
-// form); the launch runs asynchronously on `stream`.
+// `work` (merged launches only) holds B * A + 1 zeros. Returns
+// cudaGetLastError() after the launch (0 = accepted, -1 = unknown form); the
+// launch runs asynchronously on `stream`.
 int mv_render(int form, int merged, const float* cams, const float* prims,
               const float* clusters, const float* sclusters, const int* order,
               const float* dist, const int* sclist, const int* clbits,
               const float* scdist, const float* cdist, const float* kc,
-              int* out, int* visits, int batch, int num_agents, int height,
+              int* out, int* visits, int* work, int batch, int num_agents, int height,
               int num_prims, int num_clusters, int num_words, int list_len,
               int per_tile, int ui_indicators, cudaStream_t stream) {
   Args A;
@@ -1181,6 +1431,8 @@ int mv_render(int form, int merged, const float* cams, const float* prims,
   A.kc = kc;
   A.out = out;
   A.visits = visits;
+  A.work = work;
+  A.num_frames = batch * num_agents;
   A.num_agents = num_agents;
   A.height = height;
   A.num_prims = num_prims;
@@ -1189,18 +1441,14 @@ int mv_render(int form, int merged, const float* cams, const float* prims,
   A.list_len = list_len;
   A.per_tile = per_tile;
   A.ui_indicators = ui_indicators;
+  if (merged && work == nullptr) return -1;
+  const size_t smem = smem_bytes(form, merged, num_clusters, num_words);
   switch (form) {
-    case FORM_B1:
-      return launch<FORM_B1>(A, batch, merged, (size_t)B1_STAGES * B1_CHUNK * ROW_W * 4,
-                             stream);
-    case FORM_B2: {
-      const size_t walk = (size_t)2 * (num_clusters / SUPER_K) + num_words + num_clusters;
-      return launch<FORM_B2>(A, batch, merged, ((size_t)B2_SLOTS * SLOT_FLOATS + walk) * 4,
-                             stream);
-    }
-    case FORM_B3: return launch<FORM_B3>(A, batch, merged, 0, stream);
-    case FORM_B4: return launch<FORM_B4>(A, batch, merged, 0, stream);
-    case FORM_B5: return launch<FORM_B5>(A, batch, merged, 0, stream);
+    case FORM_B1: return launch<FORM_B1>(A, merged, smem, stream);
+    case FORM_B2: return launch<FORM_B2>(A, merged, smem, stream);
+    case FORM_B3: return launch<FORM_B3>(A, merged, smem, stream);
+    case FORM_B4: return launch<FORM_B4>(A, merged, smem, stream);
+    case FORM_B5: return launch<FORM_B5>(A, merged, smem, stream);
     default: return -1;
   }
 }

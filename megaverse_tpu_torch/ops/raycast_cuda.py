@@ -6,17 +6,19 @@ hand-written CUDA C++ kernel template of csrc/render.cu, in all six forms of
 the reference:
   B1  unculled, rows in table order;
   B2  bit-walk (the traversal the product path uses by default);
-  B3  clustered, in table order (per-cluster slab test + block vote);
+  B3  clustered, in table order (slab tests of 32 clusters per block vote);
   B4  B3 through sorted lists: per agent with or without distance bounds
       (sort_clusters), or per tile (frustum_cull);
   B5  two-level: per-tile lists over superclusters;
-  B6  any of the above with one thread block per (env, agent) frame.
+  B6  any of the above launched frame by frame: resident thread blocks take
+      (env, agent) frames from a work queue and stage what a frame shares
+      once.
 What bounds them on an H100 is f32 arithmetic per visited table row, not
 memory traffic (a frame reads a few KB of tables per env and writes 4 bytes
 per pixel); the design keeps each pixel's ray and closest-hit carry in
-registers and relies on the cull tables built here to visit few rows. B1 and
-B2 give each thread several pixels and stage the rows they visit in shared
-memory with asynchronous bulk copies (see csrc/render.cu).
+registers and relies on the cull tables built here to visit few rows. B1-B3
+give each thread two pixels and stage the rows they visit in shared memory
+with asynchronous bulk copies (see csrc/render.cu).
 
 The tables the kernel consumes are plain PyTorch, batched over envs:
   1. build_prim_table: unified primitive rows [B, M, 12] (layout below);
@@ -90,6 +92,10 @@ TAG_CONE_MIXED = 8  # cluster tag: live rows are CONE / CONE_FLIPPED mixed
 FAR = float(C.CAMERA_FAR)
 # Slack of the kernel's distance and slab bounds (csrc/render.cu SLACK).
 SLACK = 0.01
+# Clusters per B3 vote, and clusters B6 over B2 stages per frame
+# (csrc/render.cu B3_BATCH, FRAME_K).
+B3_BATCH = 32
+FRAME_K = 64
 
 # Launch counts, one per form: `render_packed` adds one where it launches the
 # kernel, nowhere else. A merged launch counts as B6 whatever it traverses.
@@ -165,7 +171,7 @@ def load_library():
         lib = ctypes.CDLL(str(build_library()))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mv_render.restype = i
-        lib.mv_render.argtypes = [i, i] + [p] * 13 + [i] * 9 + [p]
+        lib.mv_render.argtypes = [i, i] + [p] * 14 + [i] * 9 + [p]
         lib.mv_render_const_count.restype = i
         lib.mv_render_const_count.argtypes = []
         if lib.mv_render_const_count() != R.K_COUNT:
@@ -240,8 +246,9 @@ def render_packed(cams: torch.Tensor, prims: torch.Tensor, height: int, width: i
       B5  + `sclusters` [B,S,8]: `order`/`dist` [B,A,T,S] list superclusters
           (frustum_cull on the supercluster table); `clusters` is padded to
           4 S, `prims` need not be (8 G' rows for the G' <= G real clusters);
-      B6  `merge_tiles`: the same traversal, launched with one thread block
-          per (env, agent) frame instead of one per sub-block.
+      B6  `merge_tiles`: the same traversal, launched frame by frame
+          instead of one thread block per sub-block (an int32 work queue of
+          B * A + 1 zeros is allocated per call).
 
     CUDA tensors launch the kernel (built at first use) or raise; CPU tensors
     take the plain PyTorch version. Measurement only, on CUDA: `visits`, an
@@ -317,6 +324,8 @@ def render_packed(cams: torch.Tensor, prims: torch.Tensor, height: int, width: i
     lib = load_library()
     kc = _device_constants(height, width, str(dev))
     out = torch.empty((bsz, num_agents, height, width), dtype=i32, device=dev)
+    # the merged launch's work queue: next frame, then each frame's next sub-block
+    work = torch.zeros(bsz * num_agents + 1, dtype=i32, device=dev) if merge_tiles else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda x: None if x is None else x.data_ptr()
     with torch.cuda.device(dev):
@@ -324,8 +333,8 @@ def render_packed(cams: torch.Tensor, prims: torch.Tensor, height: int, width: i
         err = lib.mv_render(
             form, 1 if merge_tiles else 0, ptr(cams), ptr(prims), ptr(clusters),
             ptr(sclusters), ptr(order), ptr(dist), ptr(sclist), ptr(clbits),
-            ptr(scdist), ptr(cdist), ptr(kc), ptr(out), ptr(visits), bsz, num_agents,
-            height, num_prims, g, words, list_len, per_tile,
+            ptr(scdist), ptr(cdist), ptr(kc), ptr(out), ptr(visits), ptr(work), bsz,
+            num_agents, height, num_prims, g, words, list_len, per_tile,
             1 if ui_indicators else 0, stream)
     if err != 0:
         raise RuntimeError(f"render kernel launch failed: CUDA error {err}")
@@ -348,14 +357,33 @@ def box_reachable_plain(rays: R.Rays, lo, hi, bt: torch.Tensor) -> torch.Tensor:
     return (tmax >= tmin) & (tmax > 0) & (tmin < bt + SLACK)
 
 
+def live_clusters(clusters: torch.Tensor) -> torch.Tensor:
+    """bool [..., G] of cluster tables [..., G, 8]: the clusters that hold a
+    live row. A dead one is a point box at +INF (build_clusters,
+    build_superclusters); the kernel's form B3 never votes on it."""
+    return clusters[..., 0] < 1e29
+
+
+def frame_clusters_plain(clbits: torch.Tensor, cdist: torch.Tensor,
+                         num_clusters: int) -> torch.Tensor:
+    """Plain version of the clusters B6 over B2 stages once per frame
+    (csrc/render.cu stage_frame_b2, before it keeps the first FRAME_K): bool
+    [B, A, G] from cull_bits' clbits [B, A, T, W] and cdist [B, A, G]. A
+    cluster is in it when any tile of the frame has its bit and its eye
+    distance is within the far plane: no walk visits any other."""
+    return cluster_bits(clbits, num_clusters).any(dim=2) & (cdist <= FAR + SLACK)
+
+
+def cluster_bits(clbits: torch.Tensor, num_clusters: int) -> torch.Tensor:
+    """Per-tile cluster bits int32 [..., W] -> bool [..., G]."""
+    gi = torch.arange(num_clusters, device=clbits.device)
+    return ((clbits[..., gi >> 5] >> (gi & 31).to(torch.int32)) & 1) != 0
+
+
 def cluster_row_mask(clbits: torch.Tensor, num_prims: int) -> torch.Tensor:
     """Per-tile cluster bits int32 [B,A,T,Wc] -> per-tile row mask bool
     [B,A,T,M] (row i is testable iff its cluster's bit is set)."""
-    g = num_prims // CLUSTER_K
-    gi = torch.arange(g, device=clbits.device)
-    words = clbits[..., gi >> 5]
-    bits = ((words >> (gi & 31).to(torch.int32)) & 1) != 0
-    return bits.repeat_interleave(CLUSTER_K, dim=-1)
+    return cluster_bits(clbits, num_prims // CLUSTER_K).repeat_interleave(CLUSTER_K, dim=-1)
 
 
 def _listed(order: torch.Tensor, keep: torch.Tensor, n: int) -> torch.Tensor:
@@ -405,7 +433,7 @@ def render_packed_plain(cams, prims, height, width, clusters=None, order=None,
         return R.render_table_packed(cams, prims, height, width, ui_indicators)
     num_prims = prims.shape[1]
     g = clusters.shape[1]
-    live = clusters[:, None, None, :, 0] < 1e29               # [B,1,1,G]
+    live = live_clusters(clusters)[:, None, None, :]          # [B,1,1,G]
     rows_of = lambda mask: mask.repeat_interleave(CLUSTER_K, dim=-1)[..., :num_prims]
     if form == 2:
         assert num_prims == g * CLUSTER_K and g % SUPER_K == 0, (num_prims, g)
