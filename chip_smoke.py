@@ -11,7 +11,8 @@ megaverse_tpu_torch/csrc with nvcc, then
      every primitive type (reward indicators off and on), a synthetic table
      whose hits lie 90-125 m out and whose rays graze box faces (where the
      0.01 slack of the distance bounds and box votes is tightest), a table of
-     571 clusters (more than the kernel stages at once), and the
+     571 clusters (more than the kernel stages at once: B3 takes its boxes
+     in two chunks, B4 and B5 walk their lists in many batches of 32), and the
      states of Collect (64 envs x 2 agents), TowerBuilding (64 x 4) and
      Empty (64 x 2, a table shorter than 8 clusters) after 20 random steps. B1 (unculled) vs
      plain: at most 1 per colour channel on fewer than 1e-4 of the pixels (the
@@ -37,8 +38,8 @@ megaverse_tpu_torch/csrc with nvcc, then
      against the plain version once more on the full-width states these runs
      end on (comparison launches are not counted);
   4. times every form and its plain version at the Collect 1024 x 1 shape
-     (B6 over B2 and over B3; B1, B2, B3 and B6 over B2 also at the
-     TowerBuilding 1024 x 1 shape) and prints the `kernels` line (times,
+     (B6 over B2, B3, B4's per-tile lists and B5; B1, B2, B3 and B6 over B2
+     also at the TowerBuilding 1024 x 1 shape) and prints the `kernels` line (times,
      launches, largest error, roofline bound, clusters run per pixel).
 
 `--phase kernels` stops after step 2.
@@ -246,6 +247,7 @@ class Smoke:
               "rows": int(prims.shape[1]), "clusters": int(g),
               "b1_max_channel_diff": worst, "b1_fraction_differing": frac,
               "forms": report, "distinct_colours": int(torch.unique(b1).numel())})
+        return cases
 
     def kernels_vs_plain(self) -> None:
         from megaverse_tpu_torch import VectorEnv
@@ -263,14 +265,20 @@ class Smoke:
         self.compare("synthetic_far_plane_grazing", torch.from_numpy(cams_np).to(self.dev),
                      torch.from_numpy(prims_np).to(self.dev), 72, False)
         # more clusters than the kernel stages at once: B3 takes its boxes in
-        # two chunks, B6 over B2 streams what a frame cannot stage
+        # two chunks, B6 over B2 streams what a frame cannot stage, B4 and B5
+        # walk their lists in many batches
         prims_np = np.concatenate([synthetic_prims(seed=s, num_envs=2) for s in range(55)],
                                   axis=1)
         cams_np = synthetic_cams(seed=7, prims=prims_np, num_agents=4)
         if prims_np.shape[1] <= 8 * 512:
             raise AssertionError("the large table must hold more than 512 clusters")
-        self.compare("synthetic_large_table", torch.from_numpy(cams_np).to(self.dev),
-                     torch.from_numpy(prims_np).to(self.dev), 72, False)
+        cases = self.compare("synthetic_large_table", torch.from_numpy(cams_np).to(self.dev),
+                             torch.from_numpy(prims_np).to(self.dev), 72, False)
+        for case in ("b4_tile", "b5"):
+            # some list holds more entries within the far plane than one batch
+            reach = int((cases[case]["dist"] <= self.RC.FAR).sum(dim=-1).max().item())
+            if reach <= self.RC.B3_BATCH:
+                raise AssertionError(f"synthetic_large_table: {case}'s lists fit one batch")
 
         rng = np.random.default_rng(1)
         for name, envs, agents in (("Collect", 64, 2), ("TowerBuilding", 64, 4),
@@ -440,7 +448,7 @@ class Smoke:
         cams, prims, ui = base["cams"], base["prims"], base["ui_indicators"]
         cases = {"b1": dict(prims=prims)}
         cases.update(self.form_tables(cams, prims, height, 128))
-        for form in ("b2", "b3"):
+        for form in ("b2", "b3", "b4_tile", "b5"):
             cases["b6_over_" + form] = dict(merge_tiles=True, **cases[form])
         bsz, agents = cams.shape[0], cams.shape[1]
         pixels = bsz * agents * height * 128
@@ -468,7 +476,7 @@ class Smoke:
             # once, the output written once. Operations: the rows each pixel
             # visits: all live rows for B1, for the others what the kernel
             # itself counted per pixel row (`visits`: the clusters whose rows
-            # ran for the row's 128 pixels).
+            # ran for each of the row's 32-pixel segments, summed over them).
             nb = nbytes([cams, *tabs.values()]) + pixels * 4
             if case == "b1":
                 ops = (agents * height * 128 * (n_aabb * OPS_ROW_AABB + n_other * OPS_ROW_OTHER
@@ -480,9 +488,9 @@ class Smoke:
                                  visits=visits, **tabs)
                 torch.cuda.synchronize()
                 v = visits.sum(dim=(0, 1, 2)).tolist()   # clusters run: [aabb, other]
-                ops = (128 * 8 * (v[0] * OPS_ROW_AABB + v[1] * OPS_ROW_OTHER)
+                ops = (32 * 8 * (v[0] * OPS_ROW_AABB + v[1] * OPS_ROW_OTHER)
                        + pixels * OPS_PIXEL_FIXED)
-                mean_clusters = sum(v) / (bsz * agents * height)
+                mean_clusters = sum(v) / (bsz * agents * height * RC.VISIT_SEGMENTS)
             b_ms, by = bound(nb, ops)
             out[case] = dict(ms=ms, plain_ms=plain_ms, bytes=nb, ops=ops, bound_ms=b_ms,
                              bound_by=by, mean_clusters_run_per_pixel=mean_clusters)
@@ -505,7 +513,8 @@ class Smoke:
 
     def kernels_line(self, tower, collect) -> None:
         all_cases = ("b1", "b2", "b3", "b4_agent", "b4_agent_dist", "b4_tile",
-                     "b4_shuffled", "b5", "b6_over_b2", "b6_over_b3")
+                     "b4_shuffled", "b5", "b6_over_b2", "b6_over_b3", "b6_over_b4_tile",
+                     "b6_over_b5")
         at_collect, meta_c = self.time_forms(collect, all_cases)
         at_tower, meta_t = self.time_forms(tower, ("b1", "b2", "b3", "b6_over_b2"))
         emit({"phase": "kernel_times", "scenario": "Collect", **meta_c, "cases": at_collect})
@@ -530,8 +539,9 @@ class Smoke:
                 row.update(ms_towerbuilding=t["ms"], plain_ms_towerbuilding=t["plain_ms"],
                            bound_ms_towerbuilding=t["bound_ms"])
             if name == "render_b6":
-                row.update(ms_over_b3=at_collect["b6_over_b3"]["ms"],
-                           bound_ms_over_b3=at_collect["b6_over_b3"]["bound_ms"])
+                for over in ("b3", "b4_tile", "b5"):
+                    row.update({f"ms_over_{over}": at_collect[f"b6_over_{over}"]["ms"],
+                                f"bound_ms_over_{over}": at_collect[f"b6_over_{over}"]["bound_ms"]})
             rows.append(row)
         for r in rows:
             if r["launches"] < 1:

@@ -16,14 +16,20 @@
 //       current depths, one block-wide vote per batch; the rows of the
 //       clusters that passed are staged together and each runs if a second
 //       vote, at the depths of that moment, still passes it;
-//   B4  B3 through a sorted list (per agent or per tile), optionally ending
-//       early on the list's distance bounds;
-//   B5  two-level: per-tile lists over superclusters, members re-tested;
+//   B4  B3 through a list (per agent or per tile, any permutation): the
+//       list's entries and their boxes are staged 32 at a time, voted on
+//       once per batch and the passing rows staged together, as in B3, but
+//       each warp runs (and re-votes on) only what its own pixels reach;
+//       with the list's distance bounds the walk ends at the first batch
+//       beyond the block's largest depth;
+//   B5  two-level: per-tile lists over superclusters, staged 32 at a time
+//       with their members' boxes; one vote on the superclusters, then one
+//       on the members of 8 passing ones at a time, rows as in B4;
 //   B6  any of B1-B5 launched frame by frame (MERGED = true): resident blocks
 //       take whole (env, agent) frames from a queue and loop their
 //       sub-blocks, staging what the frame shares once (B2: the clusters its
-//       tiles can visit; B3: the env's boxes); idle blocks join the frames
-//       still running.
+//       tiles can visit; B3: the env's boxes; B5: the env's cluster and
+//       supercluster boxes); idle blocks join the frames still running.
 // All write packed RGB int32 [B, A, H, 128].
 //
 // What bounds it on this card: arithmetic, not memory. A frame reads a few KB
@@ -33,10 +39,11 @@
 //  - culling (B2-B5): the tables and the block votes cut the rows a pixel
 //    visits from M to the handful in front of the nearest occluder;
 //  - two pixels per thread (B1-B3): a row read once from shared memory, its
-//    type switch and the walk's control serve two rays;
-//  - few barriers: B3 votes on 32 clusters per barrier and never on a dead
+//    type switch and the walk's control serve two rays; B4 and B5 instead
+//    decide per warp whether a cluster's rows run;
+//  - few barriers: B3-B5 vote on 32 clusters per barrier and never on a dead
 //    one (Collect's bucketed table is mostly dead slots);
-//  - asynchronous staging (B1-B3, B6): one thread hands the next rows to the
+//  - asynchronous staging: one thread hands the next rows to the
 //    Tensor Memory Accelerator (cp.async.bulk, completion on an mbarrier)
 //    while the block computes on the current ones, and rows are read as three
 //    16-byte vectors from shared memory instead of a dozen scalar loads.
@@ -46,10 +53,12 @@
 // 2 P pixel rows of an 8-row tile (a "sub-block"), so a tile has 8 / (2 P)
 // sub-blocks. The reference decides per 8-row tile whether any ray
 // can reach a cluster; here the vote (__syncthreads_or) and the depth bound
-// (block_max) are per sub-block, a subset of that tile: fewer rows run, the
-// image is the same (a skipped row can never win). All loop conditions depend
-// only on table values, on that vote and on that maximum, which every thread
-// receives, so no thread leaves a loop alone.
+// (block_max) are per sub-block, a subset of that tile, and B4 and B5 run a
+// cluster's rows per warp (32 columns by P rows): fewer rows run, the image is
+// the same (a skipped row can never win). All loop conditions depend only on
+// table values, on that vote and on that maximum, which every thread
+// receives, so no thread leaves a loop alone; B4's and B5's row runs are
+// uniform per warp and hold no barrier.
 //
 // Exactness: every form must produce the image of B1 bit for bit, which rests
 // on every row computing a bit-equal `t` for the same row. All forms run a row
@@ -74,6 +83,7 @@ constexpr int TILE_W = 128;
 constexpr int LANES = 2;                     // pixel rows of one pass of the threads
 constexpr int NTHREADS = LANES * TILE_W;
 constexpr int NWARPS = NTHREADS / 32;
+constexpr int VISIT_SEGMENTS = TILE_W / 32;  // warps across a pixel row
 constexpr int ROW_W = 12;                    // f32 per primitive row
 constexpr int CLUSTER_K = 8;
 constexpr int SUPER_K = 4;
@@ -770,7 +780,9 @@ __device__ __forceinline__ void bar_wait(uint64_t* bars, int slot, uint32_t& pha
 // Every loop bound and every branch into a row below depends only on table
 // values or shared-memory words every thread reads alike, on a block-wide
 // vote (__syncthreads_or, B3's vote words) or on block_max, so all threads of
-// a block take the same path and reach the same barriers.
+// a block take the same path and reach the same barriers. The one exception,
+// B4's and B5's run of the rows a vote copied (run_voted), is a loop of a
+// warp's own, with no barrier inside.
 // ---------------------------------------------------------------------------
 enum { FORM_B1 = 1, FORM_B2, FORM_B3, FORM_B4, FORM_B5 };
 
@@ -809,15 +821,17 @@ struct Walk {
 struct Stage {
   unsigned char* dyn;   // dynamic shared memory (B1: row chunks; B2: ring + walk
                         // tables, B6 over B2 also the frame's clusters; B3: boxes,
-                        // live list, rows of a vote)
+                        // live list, rows of a vote; B4, B5: rows of a vote, the
+                        // list batch's boxes and ids, B6 over B5 the env's boxes)
   uint64_t* bars;       // NBARS mbarriers
   float* red;           // NWARPS floats for block_max
   int* cnt;             // NWARPS ints for block_rank
-  unsigned* votes;      // 2 * NWARPS vote words (B3)
+  unsigned* votes;      // 2 * NWARPS vote words (B3-B5)
   int* bcast;           // one int thread 0 hands to the block
   uint32_t phase;       // parity bit per barrier
   int key;              // what `dyn` holds across sub-blocks, -1 = nothing:
-                        // B3 env * chunks + chunk; B6 over B2 the frame
+                        // B3 env * chunks + chunk; B6 over B2 the frame; B6
+                        // over B5 the env
   int nlive;            // B3: live clusters of the staged chunk
 };
 
@@ -1058,6 +1072,24 @@ __device__ __forceinline__ void trace_b2(const Args& A, Walk& w, const Ray (&ray
   }
 }
 
+// The block's vote on a batch of up to 32 boxes: `m` holds this thread's bits
+// (box j reachable by one of its rays), the result the OR over the block, in
+// every thread. One warp reduction and one barrier. Two sets of vote words,
+// picked by the count `votes` of the caller: the next vote writes the other
+// set, and the one after it follows a barrier that every reader of this one
+// passed.
+__device__ __forceinline__ unsigned block_or(unsigned m, Stage& s, int& votes) {
+  m = __reduce_or_sync(0xffffffffu, m);
+  unsigned* vw = s.votes + (votes & 1) * NWARPS;
+  ++votes;
+  if ((threadIdx.x & 31) == 0) vw[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = 0;
+#pragma unroll
+  for (int k = 0; k < NWARPS; ++k) m |= vw[k];
+  return m;
+}
+
 // B3: clustered, in table order, strict carry from +INF (a skipped row could
 // at best tie, and in table order a tie keeps the earlier row).
 //
@@ -1120,16 +1152,7 @@ __device__ __forceinline__ void trace_b3(const Args& A, Walk& w, int env, const 
         const Box bx = load_box<true>(boxes + live[base + j] * BOX_FLOATS);
         if (any_reachable<P>(ray, bx, c)) m |= 1u << j;
       }
-      m = __reduce_or_sync(0xffffffffu, m);
-      // two sets of vote words: the next vote writes the other set, and the
-      // one after it follows a barrier that every reader of this one passed
-      unsigned* vw = s.votes + (votes & 1) * NWARPS;
-      ++votes;
-      if ((threadIdx.x & 31) == 0) vw[threadIdx.x >> 5] = m;
-      __syncthreads();
-      m = 0;
-#pragma unroll
-      for (int k = 0; k < NWARPS; ++k) m |= vw[k];
+      m = block_or(m, s, votes);
       if (m == 0) continue;
       // the ring's slot j takes the batch's cluster j; every thread is done
       // with the previous batch's rows (it has passed the barrier above)
@@ -1157,74 +1180,328 @@ __device__ __forceinline__ void trace_b3(const Args& A, Walk& w, int env, const 
   }
 }
 
-// B4: B3 visited through a list. `order` may be ANY permutation of the
-// clusters, so the carry breaks ties towards the lowest row index. With
-// `dist` (ascending lower bounds on the hit distance of the listed clusters)
-// the depth starts at the far plane and the walk ends at the first entry
-// beyond the block's largest depth, which is refreshed (one block reduction)
-// after every cluster whose rows ran.
+// Position of the (n + 1)-th lowest set bit of m.
+__device__ __forceinline__ int nth_bit(unsigned m, int n) {
+  for (; n > 0; --n) m &= m - 1;
+  return __ffs(m) - 1;
+}
+
+// The rows of one cluster (from shared memory) under the tie-break rule of
+// row_dispatch<true>, at the cost of the strict carry. Clusters do not share
+// rows, so the rows of this one are either all below the index of a pixel's
+// best row or all above it. Below: a tie wins, i.e. `t <= best`, which is
+// `t < best'` for best' the next float above best (best is positive and
+// finite: FAR_T, INF_T or a hit). Above: a tie loses, the strict rule. After
+// a row of this cluster has won, the later ones lie above it: strict again,
+// as the strict carry does by itself. If no row won, best' goes back to best.
+template <int P>
+__device__ __forceinline__ void run_cluster_tie(const Ray (&r)[P], const float* rows, int base,
+                                                Carry (&c)[P]) {
+  float t0[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    t0[p] = c[p].t;
+    if (base < c[p].idx) c[p].t = __int_as_float(__float_as_int(t0[p]) + 1);
+  }
+  run_cluster<false, P, true>(r, rows, base, c);
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    if ((unsigned)(c[p].idx - base) >= (unsigned)CLUSTER_K) c[p].t = t0[p];
+}
+
+// B4 and B5: the rows of the clusters the block's vote passed (`all`),
+// together, then, in each warp, those its own pixels passed (`mine`), in bit
+// order. Bit j stands for cluster gc_of(j), its box at box_of(j). One thread
+// bulk-copies each cluster of `all` (8 rows, 384 bytes) into ring slot j on
+// one phase of BAR_ROWS and the block waits once. A warp then decides alone:
+// the rows lie in shared memory, so a warp whose pixels cannot reach a
+// cluster skips it without a barrier. Before a cluster runs, the warp votes
+// on its box again at the depths of that moment (__any_sync), which drops
+// what an earlier one has since hidden; its first needs no re-vote, since no
+// row has run in the warp after the vote that passed it. The carry breaks
+// ties towards the lowest row index (run_cluster_tie), so the list's order
+// does not change the image. The ring is rewritten only after the next
+// vote's barrier, which every reader of this one passes first; what gc_of
+// and box_of read must be kept until a barrier after this call.
+template <int P, class GcOf, class BoxOf>
+__device__ __forceinline__ void run_voted(Walk& w, const Ray (&ray)[P], Carry (&c)[P], Stage& s,
+                                          float* ring, unsigned all, unsigned mine, GcOf gc_of,
+                                          BoxOf box_of) {
+  if (threadIdx.x == 0) {
+    bar_expect(s.bars + BAR_ROWS, (uint32_t)__popc(all) * CLUSTER_FLOATS * 4);
+    for (unsigned r = all; r; r &= r - 1) {
+      const int j = __ffs(r) - 1;
+      bulk_load(ring + j * CLUSTER_FLOATS, w.table + (size_t)gc_of(j) * CLUSTER_FLOATS,
+                CLUSTER_FLOATS * 4, s.bars + BAR_ROWS);
+    }
+  }
+  bar_wait(s.bars, BAR_ROWS, s.phase);
+  bool ran = false;
+#pragma unroll 1
+  while (mine) {
+    const int j = __ffs(mine) - 1;
+    mine &= mine - 1;
+    const Box bx = load_box<true>(box_of(j));
+    if (ran && !__any_sync(0xffffffffu, any_reachable<P>(ray, bx, c))) continue;
+    run_cluster_tie<P>(ray, ring + j * CLUSTER_FLOATS, gc_of(j) * CLUSTER_K, c);
+    count_visit(w, bx);
+    ran = true;
+  }
+}
+
+// Copy a box into the list batch in shared memory, from the global table or
+// (SHARED) from the env's staged one; false for a dead box (low corner at
+// +INF), which is then never voted on.
+template <bool SHARED>
+__device__ __forceinline__ bool stage_box(float* dst, const float* src) {
+  const float4* q = reinterpret_cast<const float4*>(src);
+  float4 x, y;
+  if (SHARED) {
+    x = q[0]; y = q[1];
+  } else {
+    x = __ldg(q); y = __ldg(q + 1);
+  }
+  float4* d = reinterpret_cast<float4*>(dst);
+  d[0] = x;
+  d[1] = y;
+  return x.x < 1e29f;
+}
+
+// B6 over B5: what a frame shares is its env's box tables. The G cluster
+// boxes, then the G / SUPER_K supercluster boxes, are staged at `envb` once
+// per env, when G <= BOX_CHUNK, so that a batch's staging reads only its
+// list entries from global memory (over B4 this read slower: PERF.md, B4 and B5).
+// Returns whether they are staged.
+__device__ __forceinline__ bool stage_env_boxes(const Args& A, int env, Stage& s, float* envb,
+                                                const float* ctab, const float* sctab) {
+  const int G = A.num_clusters;
+  if (G > BOX_CHUNK) return false;
+  if (s.key != env) {
+    __syncthreads();  // every thread is done with the boxes held so far
+    if (threadIdx.x == 0) {
+      const uint32_t cb = (uint32_t)G * BOX_FLOATS * 4;
+      const uint32_t sb = (uint32_t)(G / SUPER_K) * BOX_FLOATS * 4;
+      bar_expect(s.bars + BAR_BOXES, cb + sb);
+      bulk_load(envb, ctab, cb, s.bars + BAR_BOXES);
+      bulk_load(envb + G * BOX_FLOATS, sctab, sb, s.bars + BAR_BOXES);
+    }
+    bar_wait(s.bars, BAR_BOXES, s.phase);
+    s.key = env;
+  }
+  return true;
+}
+
+// B4: B3 through a list (`order`, per agent or per tile). The list may be ANY
+// permutation of the clusters, so the carry breaks ties towards the lowest
+// row index. It is walked B3_BATCH entries at a time. Warp 0 stages a batch:
+// each lane reads one entry (`order`, and `dist` where given) and, for a
+// cluster that owns rows and whose box is live, copies the box into shared
+// memory; no other entry is voted on, so padding and dead clusters cost no
+// test and no barrier. Each thread slab-tests its pixels against the staged
+// boxes at its current depths; the warp's OR says what the warp may run, the
+// block's (block_or, one barrier) what is copied (run_voted). With `dist`,
+// ascending lower bounds on the hit distance of the listed clusters, the
+// depth starts at the far plane and the walk ends at the first entry beyond
+// the block's largest depth `maxt`: a batch is cut there, at the `maxt` of
+// the batch's start (one block reduction after each batch that copied rows;
+// an older, larger `maxt` only keeps more entries, and the vote drops what
+// no pixel reaches), and a batch that was cut is the last. Without `dist` the
+// depth starts at +INF and the whole list is walked.
 template <int P>
 __device__ __forceinline__ void trace_b4(const Args& A, Walk& w, const Ray (&ray)[P],
                                          Carry (&c)[P], Stage& s) {
+  float* ring = reinterpret_cast<float*>(s.dyn);
+  float* boxes = ring + B3_BATCH * CLUSTER_FLOATS;
+  int* gcs = reinterpret_cast<int*>(boxes + B3_BATCH * BOX_FLOATS);
+  // two pairs (candidates, cut), one per batch parity: a thread reads its
+  // batch's pair right after the staging barrier, and warp 0 rewrites it only
+  // after the next batch's staging barrier
+  unsigned* meta = reinterpret_cast<unsigned*>(gcs + B3_BATCH);
   const size_t list = (A.per_tile ? w.bat : w.ba) * (size_t)A.list_len;
   const int* ord = A.order + list;
   const float* dst = A.dist ? A.dist + list : nullptr;
 #pragma unroll
   for (int p = 0; p < P; ++p) c[p].t = dst ? FAR_T : INF_T;
   float maxt = FAR_T;
-  for (int g = 0; g < A.list_len; ++g) {
-    if (dst && !(maxt >= __ldg(dst + g))) break;
-    int gc = __ldg(ord + g);
-    if (!cluster_has_rows(gc, A.num_prims)) continue;
-    const Box bx = load_box<false>(w.ctab + (size_t)gc * BOX_FLOATS);
-    if (__syncthreads_or(any_reachable<P>(ray, bx, c))) {
-      run_cluster<true, P, false>(ray, w.table + (size_t)gc * CLUSTER_FLOATS,
-                                  gc * CLUSTER_K, c);
-      count_visit(w, bx);
+  int votes = 0;
+#pragma unroll 1
+  for (int base = 0, n = 0; base < A.list_len; base += B3_BATCH, ++n) {
+    unsigned* mt = meta + (n & 1) * 2;
+    if (threadIdx.x < 32) {
+      const int j = threadIdx.x, g = base + j;
+      const bool in = g < A.list_len;
+      const int gc = in ? __ldg(ord + g) : -1;
+      const bool within = in && (dst == nullptr || maxt >= __ldg(dst + g));
+      const unsigned beyond = __ballot_sync(0xffffffffu, !within);
+      const int cut = beyond ? __ffs(beyond) - 1 : B3_BATCH;
+      bool ok = j < cut && cluster_has_rows(gc, A.num_prims);
+      if (ok) {
+        ok = stage_box<false>(boxes + j * BOX_FLOATS, w.ctab + (size_t)gc * BOX_FLOATS);
+        gcs[j] = gc;
+      }
+      const unsigned cand = __ballot_sync(0xffffffffu, ok);
+      if (j == 0) {
+        mt[0] = cand;
+        mt[1] = (unsigned)cut;
+      }
+    }
+    __syncthreads();
+    const unsigned cand = mt[0];
+    const int cut = (int)mt[1];
+    unsigned all = 0;
+    if (cand) {
+      unsigned m = 0;
+#pragma unroll 1
+      for (unsigned r = cand; r; r &= r - 1) {
+        const int j = __ffs(r) - 1;
+        if (any_reachable<P>(ray, load_box<true>(boxes + j * BOX_FLOATS), c)) m |= 1u << j;
+      }
+      const unsigned mine = __reduce_or_sync(0xffffffffu, m);
+      all = block_or(mine, s, votes);
+      if (all)
+        run_voted<P>(w, ray, c, s, ring, all, mine, [&](int j) { return gcs[j]; },
+                     [&](int j) { return boxes + j * BOX_FLOATS; });
+    }
+    if (cut < B3_BATCH) break;  // an entry beyond the bound, or the list's end
+    // the next staging rewrites boxes and gcs: a barrier after the last reader
+    if (all) {
       if (dst) maxt = block_max(max_depth<P>(c), s.red);
+      else __syncthreads();
     }
   }
 }
 
-// B5: two levels. The tile's list is over superclusters; one slab test and
-// vote per listed supercluster prunes 4 clusters x 8 rows, its members are
-// then tested as in B3 against the running depths.
-template <int P>
+// B5: two levels. The tile's list is over superclusters (SUPER_K clusters
+// each) and ends early as B4's does, on the supercluster bounds `dist`. A
+// batch of B3_BATCH entries is staged by five warps at once: warp 0 reads the
+// entries and copies the boxes of the listed superclusters in range, warps
+// 1-4 the boxes of their members (lane l: member l % 4 of entry
+// 8 (warp - 1) + l / 4); a dead box, a supercluster out of range or a member
+// without rows is never voted on. The block votes on the batch's
+// superclusters, takes the passing ones in list order 8 at a time, votes on
+// their (up to 32) members at the depths of that moment, and runs what passed
+// (run_voted). A warp tests only the members of the superclusters it passed
+// itself: a member's box lies inside its supercluster's, so a ray that
+// cannot reach the one cannot reach the other. Superclusters and members
+// share the tie-break carry.
+template <int P, bool MERGED>
 __device__ __forceinline__ void trace_b5(const Args& A, Walk& w, int env, const Ray (&ray)[P],
                                          Carry (&c)[P], Stage& s) {
   const int num_super = A.num_clusters / SUPER_K;
   const float* sctab = A.sclusters + (size_t)env * num_super * BOX_FLOATS;
+  float* ring = reinterpret_cast<float*>(s.dyn);
+  float* sboxes = ring + B3_BATCH * CLUSTER_FLOATS;
+  float* mboxes = sboxes + B3_BATCH * BOX_FLOATS;   // member j of entry k at SUPER_K k + j
+  int* gscs = reinterpret_cast<int*>(mboxes + SUPER_K * B3_BATCH * BOX_FLOATS);
+  // per batch parity (as B4's): candidates, cut, and 4 words of member bits
+  // (word v, bit SUPER_K (k - 8 v) + j: member j of entry k can be voted on)
+  unsigned* meta = reinterpret_cast<unsigned*>(gscs + B3_BATCH);
+  float* envb = reinterpret_cast<float*>(meta + 2 * (2 + SUPER_K));  // clusters, superclusters
+  const bool env_boxes = MERGED && stage_env_boxes(A, env, s, envb, w.ctab, sctab);
+  const float* env_sc = envb + A.num_clusters * BOX_FLOATS;
   const size_t list = (A.per_tile ? w.bat : w.ba) * (size_t)A.list_len;
   const int* ord = A.order + list;
   const float* dst = A.dist + list;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
   for (int p = 0; p < P; ++p) c[p].t = FAR_T;
   float maxt = FAR_T;
-  for (int gpos = 0; gpos < A.list_len; ++gpos) {
-    if (!(maxt >= __ldg(dst + gpos))) break;
-    int gsc = __ldg(ord + gpos);
-    if (gsc < 0 || gsc >= num_super) continue;
-    const Box sbx = load_box<false>(sctab + (size_t)gsc * BOX_FLOATS);
-    if (!__syncthreads_or(any_reachable<P>(ray, sbx, c))) continue;
+  int votes = 0;
 #pragma unroll 1
-    for (int j = 0; j < SUPER_K; ++j) {
-      int gc = gsc * SUPER_K + j;
-      if (!cluster_has_rows(gc, A.num_prims)) continue;
-      const Box bx = load_box<false>(w.ctab + (size_t)gc * BOX_FLOATS);
-      if (__syncthreads_or(any_reachable<P>(ray, bx, c))) {
-        run_cluster<true, P, false>(ray, w.table + (size_t)gc * CLUSTER_FLOATS,
-                                    gc * CLUSTER_K, c);
-        count_visit(w, bx);
-        maxt = block_max(max_depth<P>(c), s.red);
+  for (int base = 0, n = 0; base < A.list_len; base += B3_BATCH, ++n) {
+    unsigned* mt = meta + (n & 1) * (2 + SUPER_K);
+    if (warp <= SUPER_K) {
+      const int k = warp == 0 ? lane : 8 * (warp - 1) + lane / SUPER_K;
+      const int g = base + k;
+      const bool in = g < A.list_len;
+      const int gsc = in ? __ldg(ord + g) : -1;
+      const bool within = in && maxt >= __ldg(dst + g);
+      const bool listed = within && gsc >= 0 && gsc < num_super;
+      if (warp == 0) {
+        const unsigned beyond = __ballot_sync(0xffffffffu, !within);
+        const int cut = beyond ? __ffs(beyond) - 1 : B3_BATCH;
+        bool ok = lane < cut && listed;
+        if (ok) {
+          ok = env_boxes ? stage_box<true>(sboxes + lane * BOX_FLOATS, env_sc + gsc * BOX_FLOATS)
+                         : stage_box<false>(sboxes + lane * BOX_FLOATS,
+                                            sctab + (size_t)gsc * BOX_FLOATS);
+          gscs[lane] = gsc;
+        }
+        const unsigned cand = __ballot_sync(0xffffffffu, ok);
+        if (lane == 0) {
+          mt[0] = cand;
+          mt[1] = (unsigned)cut;
+        }
+      } else {
+        const int j = lane % SUPER_K;
+        const int gc = gsc * SUPER_K + j;
+        float* mb = mboxes + (SUPER_K * k + j) * BOX_FLOATS;
+        const bool ok = listed && cluster_has_rows(gc, A.num_prims) &&
+                        (env_boxes ? stage_box<true>(mb, envb + gc * BOX_FLOATS)
+                                   : stage_box<false>(mb, w.ctab + (size_t)gc * BOX_FLOATS));
+        const unsigned bits = __ballot_sync(0xffffffffu, ok);
+        if (lane == 0) mt[1 + warp] = bits;
       }
     }
+    __syncthreads();
+    const unsigned cand = mt[0];
+    const int cut = (int)mt[1];
+    bool copied = false;
+    if (cand) {
+      unsigned msc = 0;
+#pragma unroll 1
+      for (unsigned r = cand; r; r &= r - 1) {
+        const int k = __ffs(r) - 1;
+        if (any_reachable<P>(ray, load_box<true>(sboxes + k * BOX_FLOATS), c)) msc |= 1u << k;
+      }
+      const unsigned sc_mine = __reduce_or_sync(0xffffffffu, msc);
+      unsigned sc_all = block_or(sc_mine, s, votes);
+#pragma unroll 1
+      while (sc_all) {
+        // the next (up to) 8 passing superclusters in list order; bit
+        // SUPER_K i + j of the member vote is member j of the i-th of them
+        unsigned gm = 0;
+        for (int i = 0; i < 8 && sc_all; ++i) {
+          gm |= sc_all & (0u - sc_all);
+          sc_all &= sc_all - 1;
+        }
+        unsigned m = 0;
+        int i = 0;
+#pragma unroll 1
+        for (unsigned r = gm; r; r &= r - 1, ++i) {
+          const int k = __ffs(r) - 1;
+          if (!((sc_mine >> k) & 1u)) continue;
+          const unsigned mem = (mt[2 + (k >> 3)] >> (SUPER_K * (k & 7))) & 0xFu;
+          for (unsigned q = mem; q; q &= q - 1) {
+            const int j = __ffs(q) - 1;
+            if (any_reachable<P>(ray, load_box<true>(mboxes + (SUPER_K * k + j) * BOX_FLOATS), c))
+              m |= 1u << (SUPER_K * i + j);
+          }
+        }
+        const unsigned mine = __reduce_or_sync(0xffffffffu, m);
+        const unsigned all = block_or(mine, s, votes);
+        if (all) {
+          run_voted<P>(
+              w, ray, c, s, ring, all, mine,
+              [&](int b) { return gscs[nth_bit(gm, b / SUPER_K)] * SUPER_K + b % SUPER_K; },
+              [&](int b) {
+                return mboxes + (SUPER_K * nth_bit(gm, b / SUPER_K) + b % SUPER_K) * BOX_FLOATS;
+              });
+          copied = true;
+        }
+      }
+    }
+    if (cut < B3_BATCH) break;  // an entry beyond the bound, or the list's end
+    // one barrier after the last reader of the staged batch, as in B4
+    if (copied) maxt = block_max(max_depth<P>(c), s.red);
   }
 }
 
-// Pixels per thread of each form. The staged forms share a row read from
-// shared memory and the walk's control between two rays; one or four read
-// slower on the card (PERF.md, "Launch shapes"). B4 and B5 were not
-// redesigned.
+// Pixels per thread of each form. B1-B3 share a row read from shared memory
+// and the walk's control between two rays; one or four read slower on the
+// card (PERF.md, "Launch shapes"). B4 and B5 run a cluster per warp, and a
+// warp of 32 x 1 pixels skips more clusters than one of 32 x 2: one pixel
+// reads faster there (PERF.md, "Launch shapes" of B4 and B5).
 template <int FORM>
 __host__ __device__ constexpr int pixels_per_thread() {
   return FORM == FORM_B4 || FORM == FORM_B5 ? 1 : 2;
@@ -1275,19 +1552,30 @@ __device__ __forceinline__ void render_sub(const Args& A, Stage& s, int frame, i
   else if constexpr (FORM == FORM_B2) trace_b2<P, MERGED>(A, w, ray, c, s);
   else if constexpr (FORM == FORM_B3) trace_b3<P>(A, w, b, ray, c, s);
   else if constexpr (FORM == FORM_B4) trace_b4<P>(A, w, ray, c, s);
-  else trace_b5<P>(A, w, b, ray, c, s);
+  else trace_b5<P, MERGED>(A, w, b, ray, c, s);
 
 #pragma unroll
   for (int p = 0; p < P; ++p)
     epilogue(px[p], ray[p], c[p], cam, A.kc, A.ui_indicators, A.height, A.num_agents, A.out);
-  // Optional measurement output: the clusters whose rows ran for each pixel
-  // row of this sub-block.
-  if (A.visits != nullptr && threadIdx.x == 0) {
-    const int ytop = tile * TILE_H + part * LANES * P;
-    for (int r = 0; r < LANES * P; ++r) {
-      const size_t o = 2 * (w.ba * A.height + ytop + r);
-      A.visits[o + 0] = w.ran_aabb;
-      A.visits[o + 1] = w.ran_other;
+  // Optional measurement output: per pixel row, the clusters whose rows ran,
+  // summed over the row's VISIT_SEGMENTS segments of 32 pixels (one warp's
+  // columns). B4 and B5 decide per warp, the other forms per sub-block.
+  if (A.visits != nullptr) {
+    if constexpr (FORM == FORM_B4 || FORM == FORM_B5) {
+      if ((threadIdx.x & 31) == 0) {
+        for (int p = 0; p < P; ++p) {
+          const size_t o = 2 * (w.ba * A.height + y0 + LANES * p);
+          atomicAdd(A.visits + o + 0, w.ran_aabb);
+          atomicAdd(A.visits + o + 1, w.ran_other);
+        }
+      }
+    } else if (threadIdx.x == 0) {
+      const int ytop = tile * TILE_H + part * LANES * P;
+      for (int r = 0; r < LANES * P; ++r) {
+        const size_t o = 2 * (w.ba * A.height + ytop + r);
+        A.visits[o + 0] = w.ran_aabb * VISIT_SEGMENTS;
+        A.visits[o + 1] = w.ran_other * VISIT_SEGMENTS;
+      }
     }
   }
 }
@@ -1315,7 +1603,7 @@ __device__ __forceinline__ int find_open(const Args& A, int per_frame, Stage& s)
 // sub-block, grid B * A * T * subs. Merged launch (B6): a grid of resident
 // blocks takes whole frames from a queue (work[0]) and, within a frame, its
 // sub-blocks in order from the frame's counter (work[1 + frame]); per-frame
-// staging (B2: the frame's clusters; B3: the env's boxes) serves all of
+// staging (B2: the frame's clusters; B3, B5: the env's boxes) serves all of
 // them. A block that finds the queue empty joins the latest frame that still
 // has sub-blocks to take, so the launch ends within about one sub-block of
 // its last frame instead of one frame.
@@ -1370,6 +1658,14 @@ size_t smem_bytes(int form, int merged, int num_clusters, int num_words) {
       const size_t cap = g < (size_t)BOX_CHUNK ? g : (size_t)BOX_CHUNK;
       return (cap * BOX_FLOATS + (size_t)B3_BATCH * CLUSTER_FLOATS + cap) * 4;
     }
+    // ring, batch boxes, cluster ids, two sets of batch words (trace_b4)
+    case FORM_B4: return ((size_t)B3_BATCH * (CLUSTER_FLOATS + BOX_FLOATS + 1) + 2 * 2) * 4;
+    // ring, supercluster and member boxes, supercluster ids, batch words
+    // (trace_b5); merged, the env's cluster and supercluster boxes
+    case FORM_B5:
+      return ((size_t)B3_BATCH * (CLUSTER_FLOATS + (1 + SUPER_K) * BOX_FLOATS + 1) +
+              2 * (2 + SUPER_K) +
+              (merged && g <= (size_t)BOX_CHUNK ? (g + g / SUPER_K) * BOX_FLOATS : 0)) * 4;
     default: return 0;
   }
 }

@@ -92,10 +92,13 @@ TAG_CONE_MIXED = 8  # cluster tag: live rows are CONE / CONE_FLIPPED mixed
 FAR = float(C.CAMERA_FAR)
 # Slack of the kernel's distance and slab bounds (csrc/render.cu SLACK).
 SLACK = 0.01
-# Clusters per B3 vote, and clusters B6 over B2 stages per frame
-# (csrc/render.cu B3_BATCH, FRAME_K).
+# Clusters per B3 vote (and list entries per B4 and B5 batch), clusters B6
+# over B2 stages per frame, and the 32-pixel segments (one warp's columns) of
+# a pixel row that `visits` sums over (csrc/render.cu B3_BATCH, FRAME_K,
+# VISIT_SEGMENTS).
 B3_BATCH = 32
 FRAME_K = 64
+VISIT_SEGMENTS = TILE_W // 32
 
 # Launch counts, one per form: `render_packed` adds one where it launches the
 # kernel, nowhere else. A merged launch counts as B6 whatever it traverses.
@@ -253,7 +256,10 @@ def render_packed(cams: torch.Tensor, prims: torch.Tensor, height: int, width: i
     CUDA tensors launch the kernel (built at first use) or raise; CPU tensors
     take the plain PyTorch version. Measurement only, on CUDA: `visits`, an
     int32 tensor from `new_visits` that receives, per pixel row, the number
-    of all-AABB and of other clusters whose rows ran for it (forms B2-B5)."""
+    of all-AABB and of other clusters whose rows ran for it (forms B2-B5),
+    summed over the row's VISIT_SEGMENTS segments of 32 pixels (B4 and B5
+    run a cluster per warp, the other forms per block of pixel rows):
+    `visits.sum() / VISIT_SEGMENTS` clusters ran per pixel row."""
     tables = dict(clusters=clusters, order=order, dist=dist, sclusters=sclusters,
                   merge_tiles=merge_tiles, sclist=sclist, clbits=clbits,
                   scdist=scdist, cdist=cdist)

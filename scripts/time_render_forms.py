@@ -19,11 +19,11 @@ path ends on.
    that B6 over B2 can visit (mean, largest, and the frames with more than
    the FRAME_K it stages; the rest go through its ring).
 
-Cases: b1 (no cull tables), b2, b3, b4_tile and b5 of
-`utils.synthetic.form_tables` (the variants the main path runs), and the
-merged launch (B6) over each of them. Prints one JSON line
-per (source, scenario) and the card's name and power limit. Needs a GPU; it
-imports nothing of JAX.
+Cases: b1 (no cull tables), every case of `utils.synthetic.form_tables`
+(b2, b3, the four B4 variants b4_agent, b4_agent_dist, b4_tile and
+b4_shuffled, b5), and the merged launch (B6) over b1, b2, b3, b4_tile and
+b5. Prints one JSON line per (source, scenario) and the card's name and
+power limit. Needs a GPU; it imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 SCENARIOS = (("Collect", 1024), ("TowerBuilding", 1024))
-CASES = ("b1", "b2", "b3", "b4_tile", "b5", "b6_over_b1", "b6_over_b2",
-                 "b6_over_b3", "b6_over_b4_tile", "b6_over_b5")
+CASES = ("b1", "b2", "b3", "b4_agent", "b4_agent_dist", "b4_tile", "b4_shuffled", "b5",
+         "b6_over_b1", "b6_over_b2", "b6_over_b3", "b6_over_b4_tile", "b6_over_b5")
 
 
 def make_tables(path: Path) -> None:
@@ -115,7 +115,10 @@ def main() -> int:
                     visits = RC.new_visits(cams, height)
                     run(visits=visits)
                     torch.cuda.synchronize()
-                    per_pixel = visits.sum().item() / (cams.shape[0] * cams.shape[1] * height)
+                    # a tree from before VISIT_SEGMENTS counted per pixel row
+                    seg = getattr(RC, "VISIT_SEGMENTS", 1)
+                    per_pixel = visits.sum().item() / (cams.shape[0] * cams.shape[1] * height
+                                                       * seg)
                 cases[case] = dict(ms=ms, clusters_run_per_pixel=per_pixel)
             line = {"package": str(args.package_root), "source": str(src),
                     "scenario": f"{name} {cams.shape[0]}x{cams.shape[1]}",
