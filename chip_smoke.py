@@ -13,10 +13,14 @@ megaverse_tpu_torch/csrc with nvcc, then
      0.01 slack of the distance bounds and box votes is tightest), a table of
      571 clusters (more than the kernel stages at once: B3 takes its boxes
      in two chunks, B4 and B5 walk their lists in many batches of 32), and the
-     states of Collect (64 envs x 2 agents), TowerBuilding (64 x 4) and
-     Empty (64 x 2, a table shorter than 8 clusters) after 20 random steps. B1 (unculled) vs
+     states of Collect (64 envs x 2 agents), TowerBuilding (64 x 4),
+     Empty (64 x 2, a table shorter than 8 clusters), Sokoban, Rearrange
+     (ellipsoid and cylinder rows), BoxAGone (up to 972 tile rows whose
+     scales and flags change every tick) and Football (a sphere) (64 x 2
+     each) after 20 random steps. B1 (unculled) vs
      plain: at most 1 per colour channel on fewer than 1e-4 of the pixels (the
-     elementary functions of the two differ in the last place at most). B2
+     elementary functions of the two differ in the last place at most; on
+     the states of Sokoban, Rearrange, BoxAGone and Football: 0 levels). B2
      (bit-walk), B3 (clustered), B4 (per-agent lists without and with distance
      bounds, per-tile lists, a shuffled permutation), B5 (superclusters, with
      a prim table that is not padded to whole superclusters) and B6 (the
@@ -24,22 +28,25 @@ megaverse_tpu_torch/csrc with nvcc, then
      plain version: the tolerance above;
   3. drives the main path at full width through `VectorEnv`: reset +
      `step_many` chunks of 64 steps with a random action pool (numpy seed 0) +
-     flush, for TowerBuilding 1024 x 1, Empty 4096 x 1, Collect 1024 x 1 and
-     ObstaclesHard 1024 x 1 under the default mode (B2); one chunk of 16 steps
+     flush, for TowerBuilding 1024 x 1, Empty 4096 x 1, Collect 1024 x 1,
+     ObstaclesHard 1024 x 1, Sokoban, Rearrange, BoxAGone and Football 1024 x 1
+     under the default mode (B2); one chunk of 16 steps
      each of TowerBuilding with MEGAVERSE_NO_CLUSTER_CULL=1 (B1) and of Collect with
      MEGAVERSE_RENDER_MODE=super (B5), plus MEGAVERSE_NO_SUPERCLUSTERS=1 (B4,
      per-tile lists), plus MEGAVERSE_NO_CLUSTER_SORT=1 (B3), and with
      MEGAVERSE_MERGE_TILES=1 (B6 over B2); and three runs whose episodes are
      short enough for auto-resets and layout refills to happen inside them
-     (TowerBuilding 256 envs x 4 agents and Collect 256 x 2 with
-     episodeLengthSec=4, Test 256 x 1). Launch counts are
+     (TowerBuilding 256 envs x 4 agents, Collect 256 x 2 and Sokoban
+     256 x 2 with episodeLengthSec=4, Test 256 x 1). Launch counts are
      zeroed before and read after each run and must equal resets + steps for
      the form the mode selects, 0 for the others. The kernels are then held
      against the plain version once more on the full-width states these runs
-     end on (comparison launches are not counted);
+     end on (comparison launches are not counted; every form 0 levels from
+     its plain version at the four new scenarios' end states);
   4. times every form and its plain version at the Collect 1024 x 1 shape
      (B6 over B2, B3, B4's per-tile lists and B5; B1, B2, B3 and B6 over B2
-     also at the TowerBuilding 1024 x 1 shape) and prints the `kernels` line (times,
+     also at the TowerBuilding 1024 x 1 shape; B2 at the end state of each
+     new scenario's run) and prints the `kernels` line (times,
      launches, largest error, roofline bound, clusters run per pixel).
 
 `--phase kernels` stops after step 2.
@@ -85,6 +92,11 @@ REPLACES = {
     "render_b6": "megaverse_tpu/ops/raycast_pallas.py:1008",
 }
 TOL_FRACTION = 1e-4
+
+# the scenarios of the latest slice: main-path runs, B2 timed at their end
+# states, every form held 0 levels from its plain version on their states
+NEW_SCENES = {"Sokoban": "sokoban_1024x1", "Rearrange": "rearrange_1024x1",
+              "BoxAGone": "boxagone_1024x1", "Football": "football_1024x1"}
 
 # case of the comparison -> the launch counter (kernel form) it exercises
 CASE_FORM = {"b2": "render_b2", "b3": "render_b3", "b4_agent": "render_b4",
@@ -199,11 +211,17 @@ class Smoke:
               "ptxas": ptxas_summary(RC.BUILD_INFO["log"] or "")})
 
     # ------------------------------------------------------------- phase 2
-    def compare(self, label, cams, prims, height, ui, plain_cases=None) -> None:
+    def compare(self, label, cams, prims, height, ui, plain_cases=None,
+                exact=False) -> None:
         """On one input set: B1 vs plain within tolerance; every other form,
         tiled and merged, exactly equal to B1; the cases named in
-        `plain_cases` (default: all) also against their own plain version."""
+        `plain_cases` (default: all) also against their own plain version.
+        With `exact`, every form must be 0 levels from its plain version."""
         RC = self.RC
+
+        def within(w, f):
+            return w == 0 if exact else (w <= 1 and f < TOL_FRACTION)
+
         render = lambda **kw: RC.render_packed(cams, height=height, width=128,
                                                ui_indicators=ui, **kw)
         plain = RC.render_packed_plain(cams, prims, height, 128, ui_indicators=ui)
@@ -211,7 +229,7 @@ class Smoke:
         torch.cuda.synchronize()
         worst, frac = channel_diff(b1, plain)
         self.max_err["render_b1"] = max(self.max_err["render_b1"], worst)
-        if worst > 1 or frac >= TOL_FRACTION:
+        if not within(worst, frac):
             raise AssertionError(f"{label}: B1 disagrees with the plain version "
                                  f"(max {worst}, fraction {frac})")
         if torch.unique(b1).numel() < 3:
@@ -239,12 +257,15 @@ class Smoke:
             for shape, name in ((case, CASE_FORM[case]), (case + "_merged", "render_b6")):
                 w, f = channel_diff(images[shape], own)
                 self.max_err[name] = max(self.max_err[name], w)
-                if w > 1 or f >= TOL_FRACTION:
+                if not within(w, f):
                     raise AssertionError(f"{label}: {shape} disagrees with its plain "
                                          f"version (max {w}, fraction {f})")
             report[case] += f", plain max {w}"
         emit({"phase": "kernel_vs_plain", "case": label, "shape": list(b1.shape),
               "rows": int(prims.shape[1]), "clusters": int(g),
+              "row_types": {str(int(k)): int(n) for k, n in zip(
+                  *torch.unique(prims[..., 0], return_counts=True))},
+              "plain_tolerance": "0 levels" if exact else "1 level on < 1e-4",
               "b1_max_channel_diff": worst, "b1_fraction_differing": frac,
               "forms": report, "distinct_colours": int(torch.unique(b1).numel())})
         return cases
@@ -282,7 +303,9 @@ class Smoke:
 
         rng = np.random.default_rng(1)
         for name, envs, agents in (("Collect", 64, 2), ("TowerBuilding", 64, 4),
-                                   ("Empty", 64, 2)):
+                                   ("Empty", 64, 2), ("Sokoban", 64, 2),
+                                   ("Rearrange", 64, 2), ("BoxAGone", 64, 2),
+                                   ("Football", 64, 2)):
             env = VectorEnv(name, envs, agents, seed=5)
             env.reset()
             for _ in range(20):
@@ -290,7 +313,7 @@ class Smoke:
             tabs = render_tables(env.scenario, env.state, bucket=env._bucket, mode=UNCULLED)
             self.compare(f"{name}_{envs}x{agents}_after_20_steps", tabs["cams"],
                          tabs["prims"], env.scenario.cfg.obs_height,
-                         tabs["ui_indicators"])
+                         tabs["ui_indicators"], exact=name in NEW_SCENES)
             if name == "Empty":
                 # short tables take per-tile cluster lists, not superclusters
                 short = render_tables(env.scenario, env.state, bucket=env._bucket,
@@ -423,6 +446,14 @@ class Smoke:
         # 2 * 64 >= 90).
         self.drive("test_256x1_short_episodes", "Test", 256, 1, 64, 3,
                    expect_refill=True)
+        # The scenarios of the latest slice at the size bench.py times, then
+        # Sokoban with 4 s episodes (60 steps; levels also end early when
+        # solved): 8 chunks of 24 steps (overlapped refill: 2 * 24 < 60) see
+        # envs finish, restart from the layout buffer and get refilled.
+        new_envs = {name: self.drive(label, name, 1024, 1, 64, 3, keep=True)
+                    for name, label in NEW_SCENES.items()}
+        self.drive("sokoban_256x2_short_episodes", "Sokoban", 256, 2, 24, 8,
+                   params={"episodeLengthSec": 4.0}, expect_refill=True)
         # the kernels against the plain version once more, at the very shapes
         # and states the main path ended on; the forms this scenario's runs
         # went through also against their own plain version
@@ -435,7 +466,12 @@ class Smoke:
             self.compare(f"{label}_main_path_state", tabs["cams"], tabs["prims"],
                          env.scenario.cfg.obs_height, tabs["ui_indicators"],
                          plain_cases=plain_cases)
-        return tower, collect
+        # every form against its own plain version, 0 levels apart
+        for name, env in new_envs.items():
+            tabs = render_tables(env.scenario, env.state, bucket=env._bucket, mode=UNCULLED)
+            self.compare(f"{name}_1024x1_main_path_state", tabs["cams"], tabs["prims"],
+                         env.scenario.cfg.obs_height, tabs["ui_indicators"], exact=True)
+        return tower, collect, new_envs
 
     # ------------------------------------------------------------- phase 4
     def time_forms(self, env, cases_wanted):
@@ -511,7 +547,7 @@ class Smoke:
                 "gpu": self.smi}
         return out, meta
 
-    def kernels_line(self, tower, collect) -> None:
+    def kernels_line(self, tower, collect, new_envs) -> None:
         all_cases = ("b1", "b2", "b3", "b4_agent", "b4_agent_dist", "b4_tile",
                      "b4_shuffled", "b5", "b6_over_b2", "b6_over_b3", "b6_over_b4_tile",
                      "b6_over_b5")
@@ -520,6 +556,11 @@ class Smoke:
         emit({"phase": "kernel_times", "scenario": "Collect", **meta_c, "cases": at_collect})
         emit({"phase": "kernel_times", "scenario": "TowerBuilding", **meta_t,
               "cases": at_tower})
+        # B2, the main path's form, at the end state of each new scenario
+        at_new = {}
+        for name, env in new_envs.items():
+            at_new[name], meta = self.time_forms(env, ("b2",))
+            emit({"phase": "kernel_times", "scenario": name, **meta, "cases": at_new[name]})
         # one row per kernel form; B4 is read at the per-tile lists, B6 at the
         # merged bit-walk: the variants the main path ran (B6 over B3 beside it)
         rows = []
@@ -538,6 +579,12 @@ class Smoke:
                 t = at_tower[case]
                 row.update(ms_towerbuilding=t["ms"], plain_ms_towerbuilding=t["plain_ms"],
                            bound_ms_towerbuilding=t["bound_ms"])
+            if name == "render_b2":
+                for scen, cases in at_new.items():
+                    key = scen.lower()
+                    row.update({f"ms_{key}": cases["b2"]["ms"],
+                                f"plain_ms_{key}": cases["b2"]["plain_ms"],
+                                f"bound_ms_{key}": cases["b2"]["bound_ms"]})
             if name == "render_b6":
                 for over in ("b3", "b4_tile", "b5"):
                     row.update({f"ms_over_{over}": at_collect[f"b6_over_{over}"]["ms"],
@@ -567,8 +614,8 @@ def main() -> int:
     smoke.kernels_vs_plain()
     if args.phase == "kernels":
         return 0
-    tower, collect = smoke.main_path()
-    smoke.kernels_line(tower, collect)
+    tower, collect, new_envs = smoke.main_path()
+    smoke.kernels_line(tower, collect, new_envs)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smoke.smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -68,8 +68,8 @@ def _scen(scen_cls: Optional[Type], tree, device):
 
 def scen_class(scenario_name: str) -> Optional[Type]:
     """The port's scenario-state dataclass for a registered scenario name
-    (TowerState, CollectState, ObstaclesState, ...; None for scenarios that
-    carry no extra state): the `scen_cls` the converters below take."""
+    (TowerState, CollectState, ObstaclesState, SokobanState, ...; None for
+    scenarios that carry no extra state): the `scen_cls` the converters below take."""
     from megaverse_tpu_torch.scenarios import make_scenario
 
     return make_scenario(scenario_name).scen_cls
@@ -102,12 +102,24 @@ def state_from_numpy(tree: Dict[str, Any], scen_cls: Optional[Type] = None,
         scen=_scen(scen_cls, tree.get("scen"), device))
 
 
+def _unsign_cols(tree: Dict[str, Any]) -> None:
+    """View every packed-column leaf of a nested dict as uint32, in place.
+    Packed solid columns are named `cols` or `*_cols` in both packages
+    (EnvState.cols, SceneData.cols, BoxAGoneState.base_cols)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _unsign_cols(v)
+        elif k == "cols" or k.endswith("_cols"):
+            tree[k] = v.view(np.uint32)
+
+
 def tree_to_numpy(obj, unsigned_cols: bool = True) -> Any:
-    """The port's SceneData / EnvState -> nested dicts of numpy arrays in the
-    JAX package's dtypes (packed columns back to uint32)."""
+    """The port's SceneData / EnvState (or any of their sub-trees) -> nested
+    dicts of numpy arrays in the JAX package's dtypes: every packed-column
+    leaf, at any depth, goes back to uint32."""
     tree = to_numpy_tree(obj)
-    if unsigned_cols and isinstance(tree, dict) and "cols" in tree:
-        tree["cols"] = tree["cols"].view(np.uint32)
+    if unsigned_cols and isinstance(tree, dict):
+        _unsign_cols(tree)
     return tree
 
 

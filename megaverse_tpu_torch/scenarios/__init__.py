@@ -41,8 +41,12 @@ def _ensure_builtin() -> None:
         return
     _BUILTIN_LOADED = True
     from megaverse_tpu_torch.scenarios import (  # noqa: F401
+        box_a_gone,
         collect,
         empty,
+        football,
         obstacles,
+        rearrange,
+        sokoban,
         tower_building,
     )

@@ -46,8 +46,9 @@ def test_expected_modules_exist():
                  "ops.physics", "ops.raycast", "ops.raycast_cuda", "scenarios.base",
                  "scenarios.empty", "scenarios.components", "scenarios.tower_building",
                  "scenarios.collect", "scenarios.obstacles", "scenarios.platforms",
-                 "utils.refrng", "utils.synthetic", "utils.perlin", "utils.refperlin",
-                 "utils.refsort"):
+                 "scenarios.sokoban", "scenarios.rearrange", "scenarios.box_a_gone",
+                 "scenarios.football", "utils.refrng", "utils.synthetic", "utils.perlin",
+                 "utils.refperlin", "utils.refsort", "utils.boxoban"):
         assert f"megaverse_tpu_torch.{want}" in names, want
     assert os.path.exists(os.path.join(ROOT, "megaverse_tpu_torch", "csrc", "render.cu"))
 

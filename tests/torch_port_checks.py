@@ -123,9 +123,39 @@ def scripted_pair(name, seed, prepare, params=None, short_env0=1.4):
     return dict(name=name, jenv=jenv, tenv=tenv, jlog=jlog, tlog=tlog)
 
 
-def assert_logs_match(run):
+def set_scen(jenv, tenv, **fields):
+    """Overwrite scenario-state fields (numpy, [B, ...]) in both environments."""
+    jenv.state = jenv.state.replace(scen=jenv.state.scen.replace(
+        **{k: jnp.asarray(v) for k, v in fields.items()}))
+    tenv.state = tenv.state.replace(scen=tenv.state.scen.replace(
+        **{k: convert._tensor(v, "cpu") for k, v in fields.items()}))
+
+
+def set_props(jenv, tenv, **fields):
+    """Overwrite prop-table fields (numpy, [B, P, ...]) in both environments."""
+    jenv.state = jenv.state.replace(props=jenv.state.props.replace(
+        **{k: jnp.asarray(v) for k, v in fields.items()}))
+    tenv.state = tenv.state.replace(props=tenv.state.props.replace(
+        **{k: torch.from_numpy(np.array(v)) for k, v in fields.items()}))
+
+
+def single_env(name, seed=0, num_agents=1, **params):
+    """The port's counterpart of tests/test_scenarios.py::_single_env: one
+    layout from numpy seed `seed` as a batch of one env (B = 1) on the CPU.
+    Returns (scenario, state, shaping [1, A, K])."""
+    from megaverse_tpu_torch.types import scene_to_device, stack_scenes, state_from_scene
+
+    sc = t_make_scenario(name, num_agents=num_agents, params=params or None)
+    scene = scene_to_device(stack_scenes([sc.generate(np.random.default_rng(seed))]), "cpu")
+    state = state_from_scene(scene, num_agents, torch.zeros((1,), dtype=torch.int64))
+    return sc, state, torch.from_numpy(sc.shaping_array()[None])
+
+
+def assert_logs_match(run, scen_atol=None):
     """Tick by tick, with the tolerances in the module docstring. Returns the
-    number of dones seen."""
+    number of dones seen. `scen_atol` maps float fields of the scenario state
+    that carry a simulated body (Football's ball) to their absolute
+    tolerance; every other scenario field is compared for equality."""
     dones = 0
     for t, (j, p) in enumerate(zip(run["jlog"], run["tlog"])):
         where = f"{run['name']} tick {t}"
@@ -148,7 +178,13 @@ def assert_logs_match(run):
         for f in ("pos", "scale"):
             np.testing.assert_allclose(ps["props"][f], js["props"][f], atol=1e-4,
                                        err_msg=f"{where} props.{f}")
-        assert_trees_equal(ps["scen"], js["scen"], f"{where} scen")
+        pscen, jscen = ps["scen"], js["scen"]
+        for f, tol in (scen_atol or {}).items():
+            np.testing.assert_allclose(pscen[f], jscen[f], atol=tol, rtol=0,
+                                       err_msg=f"{where} scen.{f}")
+            pscen, jscen = dict(pscen), dict(jscen)
+            del pscen[f], jscen[f]
+        assert_trees_equal(pscen, jscen, f"{where} scen")
         dones += int(p["done"].sum())
     return dones
 
