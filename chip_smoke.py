@@ -16,8 +16,9 @@ megaverse_tpu_torch/csrc with nvcc, then
      states of Collect (64 envs x 2 agents), TowerBuilding (64 x 4),
      Empty (64 x 2, a table shorter than 8 clusters), Sokoban, Rearrange
      (ellipsoid and cylinder rows), BoxAGone (up to 972 tile rows whose
-     scales and flags change every tick) and Football (a sphere) (64 x 2
-     each) after 20 random steps. B1 (unculled) vs
+     scales and flags change every tick), Football (a sphere), HexExplore
+     and HexMemory (rot-box and fused wall rows) (64 x 2 each) after 20
+     random steps. B1 (unculled) vs
      plain: at most 1 per colour channel on fewer than 1e-4 of the pixels (the
      elementary functions of the two differ in the last place at most; on
      the states of Sokoban, Rearrange, BoxAGone and Football: 0 levels). B2
@@ -25,28 +26,39 @@ megaverse_tpu_torch/csrc with nvcc, then
      bounds, per-tile lists, a shuffled permutation), B5 (superclusters, with
      a prim table that is not padded to whole superclusters) and B6 (the
      merged launch of each of B1-B5) vs B1: exactly equal; each vs its own
-     plain version: the tolerance above;
+     plain version: the tolerance above. On the hex states also B2 with the
+     PVS cluster mask as `render_tables` builds it by default: exactly equal
+     to B1, within the tolerance of its plain version, and the mask must have
+     removed at least one cluster the frustum test kept;
   3. drives the main path at full width through `VectorEnv`: reset +
      `step_many` chunks of 64 steps with a random action pool (numpy seed 0) +
      flush, for TowerBuilding 1024 x 1, Empty 4096 x 1, Collect 1024 x 1,
      ObstaclesHard 1024 x 1, Sokoban, Rearrange, BoxAGone and Football 1024 x 1
-     under the default mode (B2); one chunk of 16 steps
-     each of TowerBuilding with MEGAVERSE_NO_CLUSTER_CULL=1 (B1) and of Collect with
-     MEGAVERSE_RENDER_MODE=super (B5), plus MEGAVERSE_NO_SUPERCLUSTERS=1 (B4,
-     per-tile lists), plus MEGAVERSE_NO_CLUSTER_SORT=1 (B3), and with
-     MEGAVERSE_MERGE_TILES=1 (B6 over B2); and three runs whose episodes are
-     short enough for auto-resets and layout refills to happen inside them
-     (TowerBuilding 256 envs x 4 agents, Collect 256 x 2 and Sokoban
-     256 x 2 with episodeLengthSec=4, Test 256 x 1). Launch counts are
-     zeroed before and read after each run and must equal resets + steps for
-     the form the mode selects, 0 for the others. The kernels are then held
-     against the plain version once more on the full-width states these runs
-     end on (comparison launches are not counted; every form 0 levels from
-     its plain version at the four new scenarios' end states);
+     (2 chunks each), HexExplore and HexMemory 1024 x 1 under the default
+     mode (B2, with the PVS mask of the hex scenes); one chunk of 16 steps
+     of TowerBuilding 1024 x 1 (reset included) with
+     MEGAVERSE_NO_CLUSTER_CULL=1 (B1), and on the Collect 1024 x 1 env after
+     its run one chunk of 16 steps each with MEGAVERSE_RENDER_MODE=super
+     (B5), plus MEGAVERSE_NO_SUPERCLUSTERS=1 (B4, per-tile lists), plus
+     MEGAVERSE_NO_CLUSTER_SORT=1 (B3), and with MEGAVERSE_MERGE_TILES=1 (B6
+     over B2); and runs whose episodes are short enough for auto-resets
+     and layout refills to happen inside them
+     (TowerBuilding 256 envs x 4 agents, Collect 256 x 2, Sokoban 256 x 2
+     and HexExplore 256 x 2 with episodeLengthSec=4, Test 256 x 1). The hex
+     scenes' layouts need the native host library (native/, built with g++
+     at first use): without it the script stops before any run. Launch
+     counts are zeroed before and read after each run and must equal resets
+     + steps for the form the mode selects, 0 for the others. The kernels
+     are then held against the plain version once more on the full-width
+     states these runs end on (comparison launches are not counted; every
+     form 0 levels from its plain version at the end states of Sokoban,
+     Rearrange, BoxAGone and Football; B2 with the PVS mask equal to B1 at
+     the hex end states);
   4. times every form and its plain version at the Collect 1024 x 1 shape
      (B6 over B2, B3, B4's per-tile lists and B5; B1, B2, B3 and B6 over B2
      also at the TowerBuilding 1024 x 1 shape; B2 at the end state of each
-     new scenario's run) and prints the `kernels` line (times,
+     run of Sokoban, Rearrange, BoxAGone, Football and the hex scenes, the
+     latter with and without the PVS mask) and prints the `kernels` line (times,
      launches, largest error, roofline bound, clusters run per pixel).
 
 `--phase kernels` stops after step 2.
@@ -93,10 +105,14 @@ REPLACES = {
 }
 TOL_FRACTION = 1e-4
 
-# the scenarios of the latest slice: main-path runs, B2 timed at their end
-# states, every form held 0 levels from its plain version on their states
+# scenarios with a 1024 x 1 main-path run whose end state B2 is timed at;
+# on the states of the first four every form is held 0 levels from its plain
+# version
 NEW_SCENES = {"Sokoban": "sokoban_1024x1", "Rearrange": "rearrange_1024x1",
               "BoxAGone": "boxagone_1024x1", "Football": "football_1024x1"}
+# the hex scenes: their layouts carry a PVS render mask, which the bit-walk's
+# cull takes by default
+HEX_SCENES = {"HexExplore": "hexexplore_1024x1", "HexMemory": "hexmemory_1024x1"}
 
 # case of the comparison -> the launch counter (kernel form) it exercises
 CASE_FORM = {"b2": "render_b2", "b3": "render_b3", "b4_agent": "render_b4",
@@ -198,7 +214,14 @@ class Smoke:
 
     # ------------------------------------------------------------- phase 1
     def machine(self) -> None:
+        from megaverse_tpu_torch.utils import native
         RC = self.RC
+        # The hex scenes' layouts search the maze's portals for visibility:
+        # the native library does that in tens of milliseconds per layout, the
+        # python fallback in seconds, so without it the runs would take hours.
+        t0 = time.perf_counter()
+        have_native = native.have_native()
+        native_seconds = time.perf_counter() - t0
         t0 = time.perf_counter()
         RC.load_library()
         nvcc = subprocess.run([RC.BUILD_INFO["nvcc"], "--version"],
@@ -208,7 +231,12 @@ class Smoke:
               "nvcc": nvcc[-2] if len(nvcc) >= 2 else nvcc,
               "build_seconds": RC.BUILD_INFO["seconds"],
               "load_seconds": time.perf_counter() - t0,
+              "native_library": have_native, "native_seconds": native_seconds,
               "ptxas": ptxas_summary(RC.BUILD_INFO["log"] or "")})
+        if not have_native:
+            raise AssertionError("the native host library (native/build.sh) did not "
+                                 "build or load: hex layouts would take the python "
+                                 "portal search")
 
     # ------------------------------------------------------------- phase 2
     def compare(self, label, cams, prims, height, ui, plain_cases=None,
@@ -270,6 +298,45 @@ class Smoke:
               "forms": report, "distinct_colours": int(torch.unique(b1).numel())})
         return cases
 
+    def pvs_check(self, label, env) -> None:
+        """B2 with the scenario's PVS cluster mask, as `render_tables` builds
+        it by default: exactly equal to B1 (tiled and merged), within the
+        tolerance of its plain version, and the mask removed at least one
+        cluster that the frustum test kept."""
+        from megaverse_tpu_torch.env import UNCULLED, RenderMode, render_tables
+        RC = self.RC
+        height = env.scenario.cfg.obs_height
+        tables = lambda mode: render_tables(env.scenario, env.state, bucket=env._bucket,
+                                            mode=mode)
+        masked, unmasked, b1_tabs = (tables(RenderMode()), tables(RenderMode(pvs=False)),
+                                     tables(UNCULLED))
+        g = masked["clusters"].shape[1]
+        on = RC.cluster_bits(masked["clbits"], g)
+        off = RC.cluster_bits(unmasked["clbits"], g)
+        removed = int((off & ~on).sum().item())
+        if removed < 1 or bool((on & ~off).any().item()):
+            raise AssertionError(f"{label}: the PVS mask removed {removed} clusters "
+                                 "(none, or it added some)")
+        b1 = RC.render_packed(height=height, width=128, **b1_tabs)
+        img = RC.render_packed(height=height, width=128, **masked)
+        merged = RC.render_packed(height=height, width=128, **dict(masked, merge_tiles=True))
+        torch.cuda.synchronize()
+        for shape, im in (("b2_pvs", img), ("b2_pvs_merged", merged)):
+            if not bool((im == b1).all().item()):
+                raise AssertionError(f"{label}: {shape} differs from B1 on "
+                                     f"{int((im != b1).sum().item())} pixels")
+        plain = RC.render_packed_plain(height=height, width=128, **masked)
+        w, f = channel_diff(img, plain)
+        self.max_err["render_b2"] = max(self.max_err["render_b2"], w)
+        if not (w <= 1 and f < TOL_FRACTION):
+            raise AssertionError(f"{label}: B2 with the PVS mask disagrees with its "
+                                 f"plain version (max {w}, fraction {f})")
+        emit({"phase": "pvs_mask", "case": label, "clusters": g,
+              "tile_clusters_kept_by_frustum": int(off.sum().item()),
+              "tile_clusters_removed_by_mask": removed,
+              "b2_pvs": "== b1 (tiled, merged)", "plain_max_channel_diff": w,
+              "plain_fraction_differing": f})
+
     def kernels_vs_plain(self) -> None:
         from megaverse_tpu_torch import VectorEnv
         from megaverse_tpu_torch.env import UNCULLED, RenderMode, render_tables
@@ -305,7 +372,8 @@ class Smoke:
         for name, envs, agents in (("Collect", 64, 2), ("TowerBuilding", 64, 4),
                                    ("Empty", 64, 2), ("Sokoban", 64, 2),
                                    ("Rearrange", 64, 2), ("BoxAGone", 64, 2),
-                                   ("Football", 64, 2)):
+                                   ("Football", 64, 2), ("HexExplore", 64, 2),
+                                   ("HexMemory", 64, 2)):
             env = VectorEnv(name, envs, agents, seed=5)
             env.reset()
             for _ in range(20):
@@ -314,6 +382,8 @@ class Smoke:
             self.compare(f"{name}_{envs}x{agents}_after_20_steps", tabs["cams"],
                          tabs["prims"], env.scenario.cfg.obs_height,
                          tabs["ui_indicators"], exact=name in NEW_SCENES)
+            if name in HEX_SCENES:
+                self.pvs_check(f"{name}_{envs}x{agents}_after_20_steps", env)
             if name == "Empty":
                 # short tables take per-tile cluster lists, not superclusters
                 short = render_tables(env.scenario, env.state, bucket=env._bucket,
@@ -344,7 +414,6 @@ class Smoke:
         """reset + `chunks` x step_many(chunk) + flush through VectorEnv, with
         the launch counts zeroed before and read after."""
         from megaverse_tpu_torch import VectorEnv
-        from megaverse_tpu_torch.types import tree_leaves
         RC = self.RC
         env = VectorEnv(name, envs, agents, seed=42, params=params)
         pool = self.action_pool(envs, agents)
@@ -370,6 +439,11 @@ class Smoke:
         timed = secs[1:] or secs
         rate = envs * agents * chunk * len(timed) / sum(timed)
         n_done = int(any_done.sum().item())
+        extra = {}
+        row_bits = env.scenario.render_row_mask(env.state)
+        if row_bits is not None:
+            # (env, agent) pairs whose PVS row mask hides some row at the end
+            extra["pvs_mask_active_share"] = (~row_bits.all(dim=-1)).float().mean().item()
         emit({"phase": "main_path", "run": label, "scenario": name, "envs": envs,
               "agents": agents, "steps": steps, "launches": counts,
               "render_mode": {k: v for k, v in vars(env.render_mode).items()},
@@ -380,14 +454,27 @@ class Smoke:
               "reset_seconds": reset_seconds,
               "layout_seconds_reset": reset_layout_seconds,
               "layout_seconds_total": env.layout_seconds,
-              "layouts_generated": 2 * envs + env.num_refilled_envs,
+              "layouts_generated": 2 * envs + env.num_refilled_envs, **extra,
               "gpu": self.smi, "note": "first reading, not a claim"})
+        self.check_run(label, env, counts, form, 1 + steps, obs)
+        if expect_refill and (n_done < 1 or env.num_refilled_envs < 1):
+            raise AssertionError(f"{label}: no auto-reset/refill happened "
+                                 f"(done {n_done}, refilled {env.num_refilled_envs})")
+        self.obs_per_s[label] = rate
+        env.close()
+        return env if keep else None
+
+    def check_run(self, label, env, counts, form, expected, obs) -> None:
+        """`expected` launches of `form` and none of any other; packed,
+        non-constant observations; a finite state."""
+        from megaverse_tpu_torch.types import tree_leaves
         for k, n in counts.items():
-            if n != (1 + steps if k == form else 0):
+            if n != (expected if k == form else 0):
                 raise AssertionError(f"{label}: launches {counts}, expected "
-                                     f"{1 + steps} of {form} and no other")
+                                     f"{expected} of {form} and no other")
             self.launches[k] += n
-        if obs.dtype != torch.int32 or tuple(obs.shape) != (envs, agents, 72, 128):
+        shape = (env.num_envs, env.num_agents_per_env, 72, 128)
+        if obs.dtype != torch.int32 or tuple(obs.shape) != shape:
             raise AssertionError(f"{label}: obs {obs.dtype} {tuple(obs.shape)}")
         if torch.unique(obs).numel() < 3:
             raise AssertionError(f"{label}: observations are constant")
@@ -397,12 +484,37 @@ class Smoke:
                 raise AssertionError(f"{label}: non-finite values in the state")
         if not torch.isfinite(st.total_reward).all():
             raise AssertionError(f"{label}: rewards not finite")
-        if expect_refill and (n_done < 1 or env.num_refilled_envs < 1):
-            raise AssertionError(f"{label}: no auto-reset/refill happened "
-                                 f"(done {n_done}, refilled {env.num_refilled_envs})")
+
+    def drive_mode(self, label, name, env, form, chunk=16) -> None:
+        """One step_many chunk + flush of a driven env under the render mode
+        the environment variables now select, with the launch counts zeroed
+        before and read after; the env goes back to its own mode."""
+        from megaverse_tpu_torch.env import RenderMode
+        RC = self.RC
+        own = env.render_mode
+        env.render_mode = RenderMode.from_env()
+        pool = self.action_pool(env.num_envs, env.num_agents_per_env)
+        torch.cuda.synchronize()
+        RC.reset_launch_counts()
+        t0 = time.perf_counter()
+        obs, _, csums = env.step_many(pool, chunk)
+        _ = int(csums[-1].item())
+        seconds = time.perf_counter() - t0
+        env.flush()
+        torch.cuda.synchronize()
+        counts = dict(RC.LAUNCHES)
+        mode = {k: v for k, v in vars(env.render_mode).items()}
+        env.render_mode = own
+        rate = env.num_envs * env.num_agents_per_env * chunk / seconds
+        emit({"phase": "main_path", "run": label, "scenario": name,
+              "envs": env.num_envs, "agents": env.num_agents_per_env, "steps": chunk,
+              "launches": counts, "render_mode": mode, "bucket": env._bucket,
+              "obs_per_sec": rate, "ms_per_step": 1e3 * seconds / chunk,
+              "chunk_seconds": [seconds], "refills": env.num_refills,
+              "gpu": self.smi, "note": "first reading, not a claim; one chunk "
+                                       "(first call of the form included)"})
+        self.check_run(label, env, counts, form, chunk, obs)
         self.obs_per_s[label] = rate
-        env.close()
-        return env if keep else None
 
     def main_path(self):
         from megaverse_tpu_torch.env import UNCULLED, render_tables
@@ -412,18 +524,18 @@ class Smoke:
             self.drive("tower_1024x1_unculled", "TowerBuilding", 1024, 1, 16, 1,
                        form="render_b1")
         collect = self.drive("collect_1024x1", "Collect", 1024, 1, 64, 3, keep=True)
+        # The other forms at the same width, on the Collect env just driven
+        # (a new env per form would generate 2,048 more layouts on the host
+        # each): one chunk of 16 steps in each mode, its launch counts zeroed
+        # before and read after.
         with ModeEnv(MEGAVERSE_RENDER_MODE="super"):
-            self.drive("collect_1024x1_super", "Collect", 1024, 1, 16, 1,
-                       form="render_b5")
+            self.drive_mode("collect_1024x1_super", "Collect", collect, "render_b5")
             with ModeEnv(MEGAVERSE_NO_SUPERCLUSTERS="1"):
-                self.drive("collect_1024x1_tile_lists", "Collect", 1024, 1, 16, 1,
-                           form="render_b4")
+                self.drive_mode("collect_1024x1_tile_lists", "Collect", collect, "render_b4")
                 with ModeEnv(MEGAVERSE_NO_CLUSTER_SORT="1"):
-                    self.drive("collect_1024x1_in_order", "Collect", 1024, 1, 16, 1,
-                               form="render_b3")
+                    self.drive_mode("collect_1024x1_in_order", "Collect", collect, "render_b3")
         with ModeEnv(MEGAVERSE_MERGE_TILES="1"):
-            self.drive("collect_1024x1_merged", "Collect", 1024, 1, 16, 1,
-                       form="render_b6")
+            self.drive_mode("collect_1024x1_merged", "Collect", collect, "render_b6")
         hard = self.drive("obstacleshard_1024x1", "ObstaclesHard", 1024, 1, 64, 3,
                           keep=True)
         # Four agents per env (the per-agent passes of the stacking component).
@@ -450,9 +562,17 @@ class Smoke:
         # Sokoban with 4 s episodes (60 steps; levels also end early when
         # solved): 8 chunks of 24 steps (overlapped refill: 2 * 24 < 60) see
         # envs finish, restart from the layout buffer and get refilled.
-        new_envs = {name: self.drive(label, name, 1024, 1, 64, 3, keep=True)
+        new_envs = {name: self.drive(label, name, 1024, 1, 64, 2, keep=True)
                     for name, label in NEW_SCENES.items()}
         self.drive("sokoban_256x2_short_episodes", "Sokoban", 256, 2, 24, 8,
+                   params={"episodeLengthSec": 4.0}, expect_refill=True)
+        # The hex scenes at the size bench.py times, then HexExplore with 4 s
+        # episodes (60 steps; HexMemory's last episodeLengthSec + 3 s per
+        # good object): 8 chunks of 24 steps (overlapped refill) see envs
+        # finish, restart from the layout buffer and get refilled.
+        hex_envs = {name: self.drive(label, name, 1024, 1, 64, 3, keep=True)
+                    for name, label in HEX_SCENES.items()}
+        self.drive("hexexplore_256x2_short_episodes", "HexExplore", 256, 2, 24, 8,
                    params={"episodeLengthSec": 4.0}, expect_refill=True)
         # the kernels against the plain version once more, at the very shapes
         # and states the main path ended on; the forms this scenario's runs
@@ -471,19 +591,29 @@ class Smoke:
             tabs = render_tables(env.scenario, env.state, bucket=env._bucket, mode=UNCULLED)
             self.compare(f"{name}_1024x1_main_path_state", tabs["cams"], tabs["prims"],
                          env.scenario.cfg.obs_height, tabs["ui_indicators"], exact=True)
-        return tower, collect, new_envs
+        for name, env in hex_envs.items():
+            tabs = render_tables(env.scenario, env.state, bucket=env._bucket, mode=UNCULLED)
+            self.compare(f"{name}_1024x1_main_path_state", tabs["cams"], tabs["prims"],
+                         env.scenario.cfg.obs_height, tabs["ui_indicators"])
+            self.pvs_check(f"{name}_1024x1_main_path_state", env)
+        return tower, collect, {**new_envs, **hex_envs}
 
     # ------------------------------------------------------------- phase 4
     def time_forms(self, env, cases_wanted):
         """Kernel and plain-version milliseconds, bytes, operations and bound
-        of the wanted cases at the state `env` ended on."""
-        from megaverse_tpu_torch.env import UNCULLED, render_tables
+        of the wanted cases at the state `env` ended on ("b2_pvs": B2 with
+        the scenario's PVS cluster mask, as the main path renders it)."""
+        from megaverse_tpu_torch.env import UNCULLED, RenderMode, render_tables
         RC = self.RC
         height = env.scenario.cfg.obs_height
         base = render_tables(env.scenario, env.state, bucket=env._bucket, mode=UNCULLED)
         cams, prims, ui = base["cams"], base["prims"], base["ui_indicators"]
         cases = {"b1": dict(prims=prims)}
         cases.update(self.form_tables(cams, prims, height, 128))
+        if "b2_pvs" in cases_wanted:
+            masked = render_tables(env.scenario, env.state, bucket=env._bucket,
+                                   mode=RenderMode())
+            cases["b2_pvs"] = {k: masked[k] for k in cases["b2"]}
         for form in ("b2", "b3", "b4_tile", "b5"):
             cases["b6_over_" + form] = dict(merge_tiles=True, **cases[form])
         bsz, agents = cams.shape[0], cams.shape[1]
@@ -556,10 +686,13 @@ class Smoke:
         emit({"phase": "kernel_times", "scenario": "Collect", **meta_c, "cases": at_collect})
         emit({"phase": "kernel_times", "scenario": "TowerBuilding", **meta_t,
               "cases": at_tower})
-        # B2, the main path's form, at the end state of each new scenario
+        # B2, the main path's form, at the end state of each run of
+        # NEW_SCENES and HEX_SCENES; at the hex scenes' with and without the
+        # PVS mask
         at_new = {}
         for name, env in new_envs.items():
-            at_new[name], meta = self.time_forms(env, ("b2",))
+            wanted = ("b2", "b2_pvs") if name in HEX_SCENES else ("b2",)
+            at_new[name], meta = self.time_forms(env, wanted)
             emit({"phase": "kernel_times", "scenario": name, **meta, "cases": at_new[name]})
         # one row per kernel form; B4 is read at the per-tile lists, B6 at the
         # merged bit-walk: the variants the main path ran (B6 over B3 beside it)
@@ -580,11 +713,16 @@ class Smoke:
                 row.update(ms_towerbuilding=t["ms"], plain_ms_towerbuilding=t["plain_ms"],
                            bound_ms_towerbuilding=t["bound_ms"])
             if name == "render_b2":
+                # at the hex scenes the main path's B2 runs with the PVS mask
                 for scen, cases in at_new.items():
                     key = scen.lower()
-                    row.update({f"ms_{key}": cases["b2"]["ms"],
-                                f"plain_ms_{key}": cases["b2"]["plain_ms"],
-                                f"bound_ms_{key}": cases["b2"]["bound_ms"]})
+                    main = cases.get("b2_pvs", cases["b2"])
+                    row.update({f"ms_{key}": main["ms"],
+                                f"plain_ms_{key}": main["plain_ms"],
+                                f"bound_ms_{key}": main["bound_ms"]})
+                    if "b2_pvs" in cases:
+                        row.update({f"ms_{key}_without_pvs": cases["b2"]["ms"],
+                                    f"bound_ms_{key}_without_pvs": cases["b2"]["bound_ms"]})
             if name == "render_b6":
                 for over in ("b3", "b4_tile", "b5"):
                     row.update({f"ms_over_{over}": at_collect[f"b6_over_{over}"]["ms"],

@@ -214,6 +214,7 @@ class RenderMode:
     early_exit: bool = True       # MEGAVERSE_NO_EARLY_EXIT: per-agent lists, no dist (B4)
     superclusters: bool = True    # MEGAVERSE_NO_SUPERCLUSTERS: per-tile cluster lists (B4)
     merge_tiles: bool = False     # MEGAVERSE_MERGE_TILES: one block per frame (B6)
+    pvs: bool = True              # MEGAVERSE_NO_PVS clears it: no scenario row mask in B2's cull
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "RenderMode":
@@ -227,10 +228,28 @@ class RenderMode:
             early_exit=off("MEGAVERSE_NO_EARLY_EXIT"),
             superclusters=off("MEGAVERSE_NO_SUPERCLUSTERS"),
             merge_tiles=not off("MEGAVERSE_MERGE_TILES"),
+            pvs=off("MEGAVERSE_NO_PVS"),
         )
 
 
 UNCULLED = RenderMode(cluster_cull=False)
+
+
+def row_cluster_mask(row_bits: torch.Tensor, keep, num_boxes: int,
+                     num_rows: int) -> torch.Tensor:
+    """A scenario's per-prop-row visibility bits bool [B, A, prop_cap] ->
+    per-cluster bits bool [B, A, num_rows // CLUSTER_K] of a prim table of
+    `num_rows` rows (padded to whole clusters). The bits are aligned with the
+    table's rows: the box rows (always visible), the `keep` slices
+    ((start, count), None for all rows) the prop tables got, then the agent
+    rows and the cluster padding (visible)."""
+    bsz, na = row_bits.shape[:2]
+    ones = lambda n: torch.ones((bsz, na, n), dtype=torch.bool, device=row_bits.device)
+    parts = [ones(num_boxes)]
+    parts += ([row_bits] if keep is None else [row_bits[:, :, s:s + k] for s, k in keep])
+    rb = torch.cat(parts, dim=2)
+    rb = torch.cat([rb, ones(num_rows - rb.shape[2])], dim=2)
+    return rb.reshape(bsz, na, -1, RC.CLUSTER_K).any(dim=-1)
 
 
 def render_tables(scenario: Scenario, states, bucket: Optional[tuple] = None,
@@ -251,6 +270,9 @@ def render_tables(scenario: Scenario, states, bucket: Optional[tuple] = None,
     segments = cfg.prop_segments
     box_lo, box_hi, box_color = states.box_lo, states.box_hi, states.box_color
     props = states.props
+    # (start, count) slices of the full-capacity prop rows that the table
+    # keeps; the scenario's per-row visibility bits get the same slices
+    keep = None
     if bucket is not None:
         mb = max(1, min(int(bucket[0]), box_color.shape[1]))
         pb = bucket[1]
@@ -268,6 +290,7 @@ def render_tables(scenario: Scenario, states, bucket: Optional[tuple] = None,
             # pb == 0 is allowed: a scenario whose layouts never contain props
             # (Empty) renders zero prop rows.
             pb = max(0, min(int(pb), props.type.shape[1]))
+            keep = [(0, pb)] if pb else []
             props = tree_map(lambda x: x[:, :pb], props)
         box_lo, box_hi, box_color = box_lo[:, :mb], box_hi[:, :mb], box_color[:, :mb]
     remaining = torch.clamp(
@@ -289,9 +312,11 @@ def render_tables(scenario: Scenario, states, bucket: Optional[tuple] = None,
         # Bit-walk prologue: plain elementwise tensor code plus one small sort.
         clusters, _ = RC.build_superclusters(clusters)
         prims = RC.pad_prims_to_clusters(prims, clusters)
-        # the per-row visibility mask of the hex scenarios is not ported yet
-        assert scenario.render_row_mask(states) is None
-        sclist, clbits, scdist, cdist = RC.cull_bits(cams, clusters, height, width)
+        row_bits = scenario.render_row_mask(states) if mode.pvs else None
+        cluster_mask = (None if row_bits is None else
+                        row_cluster_mask(row_bits, keep, box_color.shape[1], prims.shape[1]))
+        sclist, clbits, scdist, cdist = RC.cull_bits(cams, clusters, height, width,
+                                                     cluster_mask=cluster_mask)
         tables.update(sclist=sclist, clbits=clbits, scdist=scdist, cdist=cdist)
     elif not mode.cluster_sort:
         pass                                    # clusters in table order

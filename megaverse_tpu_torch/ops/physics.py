@@ -13,8 +13,9 @@ The agent capsule (r=0.33, cylinder h=1.05; agent.cpp:52-54) collides
 CIRCLE-exactly in the horizontal plane and sphere-exactly against
 floors/ceilings; the full [bottom, top] extent blocks horizontally.
 
-Agent tensors are [B, A, ...]; `cols` is [B, X, W, Z]. The exact y-rotated
-wall boxes of the hex mazes (`obbs`) are not ported yet: `obbs` must be None.
+Agent tensors are [B, A, ...]; `cols` is [B, X, W, Z]; the exact y-rotated
+wall boxes of the hex mazes (`obbs`) are [B, W, 7], so the wall passes work on
+[B, A, W].
 """
 
 from __future__ import annotations
@@ -295,9 +296,10 @@ def _slide_horizontal(cfg: GridConfig, cols: torch.Tensor, pos: torch.Tensor,
 def player_step(cfg: GridConfig, agents: AgentState, dt: float,
                 cols: torch.Tensor, obbs=None) -> AgentState:
     """One physics tick for all agents (ref playerStep, kcc.cpp:528-602) on
-    the packed solid-column grid `cols`."""
-    if obbs is not None:
-        raise NotImplementedError("rotated-wall collision boxes are not ported yet")
+    the packed solid-column grid `cols`. `obbs` [B, W, 7] adds exact
+    y-rotated wall boxes (hex mazes): horizontal blocking by capsule-vs-OBB
+    push-out after the grid slide (the momentum arrest then sees the
+    corrected travel) and landing support from wall tops in stepDown."""
     pos0 = agents.pos
     was_on_ground = agents.on_ground
 
@@ -335,8 +337,11 @@ def player_step(cfg: GridConfig, agents: AgentState, dt: float,
     voffset = torch.where(hit_ceiling_rising, zero, voffset)
 
     # --- stepForwardAndStrafe (kcc.cpp:337-393), iterative sweep-slide ---
+    pre_slide = pos
     pos = _slide_horizontal(cfg, cols, pos,
                             agents.hvel[..., 0] * dt, agents.hvel[..., 2] * dt)
+    if obbs is not None:
+        pos = _obb_push_xz(pos, obbs, pre_slide)
 
     # --- stepDown (kcc.cpp:400-442) ---
     down_vel = torch.where(vvel < 0, -vvel, zero)
@@ -350,6 +355,13 @@ def player_step(cfg: GridConfig, agents: AgentState, dt: float,
     # top at horizontal distance d, and slips off past the 45-degree filter
     floor_y, floor_found = G.cols_capsule_floor_below(
         cfg, cols, pos[..., 0], pos[..., 2], bottom, MAX_DROP, _span_xz(cfg), HALF_XZ)
+    if obbs is not None:
+        # wall tops are floor candidates too (landing on maze walls)
+        otop, ofound = obb_floor_support(pos, obbs)
+        ok = ofound & (otop <= bottom + CLAMP_MARGIN)
+        better = ok & (~floor_found | (otop > floor_y))
+        floor_y = torch.where(better, otop, floor_y)
+        floor_found = floor_found | ok
     # Land if a floor top lies within the drop distance below (or at) the
     # capsule bottom.
     land = floor_found & (floor_y >= bottom - drop)
@@ -377,15 +389,141 @@ def player_step(cfg: GridConfig, agents: AgentState, dt: float,
                           on_ground=on_ground)
 
 
+def _obb_local_xz(pos: torch.Tensor, obbs: torch.Tensor):
+    """World XZ -> per-wall local (u: along length, v: along thickness).
+
+    pos [B, A, 3], obbs [B, W, 7] (cx, cy, cz, hx, hy, hz, yaw) ->
+    (u, v) each [B, A, W]. Same rotation convention as the renderer's
+    PRIM_ROTBOX and the reference's layoutBox.rotateY
+    (component_hexagonal_maze.cpp:107)."""
+    cy_ = torch.cos(obbs[:, None, :, 6])
+    sy_ = torch.sin(obbs[:, None, :, 6])
+    ox = pos[..., 0:1] - obbs[:, None, :, 0]
+    oz = pos[..., 2:3] - obbs[:, None, :, 2]
+    u = cy_ * ox - sy_ * oz
+    v = sy_ * ox + cy_ * oz
+    return u, v
+
+
+def resolve_obb_walls(agents: AgentState, obbs: torch.Tensor,
+                      prev_pos: torch.Tensor = None, iters: int = 3,
+                      dt: float = C.DEFAULT_DT) -> AgentState:
+    """Exact capsule-vs-rotated-wall horizontal collision as a pass of its
+    own: agents are pushed out of their deepest-penetrating wall along the
+    capsule(circle r)-vs-rectangle contact normal, `iters` times, and the
+    push is folded into the horizontal velocity the way playerStep derives
+    it from actual travel (kcc.cpp:576-578).
+
+    The reference collides agents with y-rotated Bullet boxes for hex-maze
+    walls (component_hexagonal_maze.cpp:79-113; only the main wall box gets
+    a RigidBody). obbs [B, W, 7]; rows with hy < 0 are inert. `prev_pos`
+    (positions before the horizontal move) picks the push side when a step
+    carries the center past the wall's midplane."""
+    if obbs.shape[1] == 0:
+        return agents
+    if prev_pos is None:
+        prev_pos = agents.pos
+    pos = _obb_push_xz(agents.pos, obbs, prev_pos, iters)
+    moved = ((pos - agents.pos).abs() > 0).any(dim=-1)
+    delta = (pos - agents.pos) / dt
+    hvel = agents.hvel + delta
+    hvel = torch.stack([hvel[..., 0], torch.zeros_like(hvel[..., 1]), hvel[..., 2]], dim=-1)
+    hvel = torch.where(moved[..., None], hvel, agents.hvel)
+    return agents.replace(pos=pos, hvel=hvel)
+
+
+def _obb_push_xz(pos: torch.Tensor, obbs: torch.Tensor, prev_pos: torch.Tensor,
+                 iters: int = 3) -> torch.Tensor:
+    """Positional core of resolve_obb_walls: push capsule centers [B, A, 3]
+    out of the rotated walls obbs [B, W, 7], the deepest wall per agent and
+    iteration (the first of equal depths, as `jnp.argmax` picks it). Used
+    directly inside player_step so the momentum arrest sees the corrected
+    travel."""
+    r = HALF_XZ
+    _, v_prev = _obb_local_xz(prev_pos, obbs)                 # [B, A, W]
+    one = torch.ones_like(v_prev)
+    side_prev = torch.where(v_prev >= 0, one, -one)
+    cy_, hx = obbs[:, None, :, 1], obbs[:, None, :, 3]
+    hy, hv = obbs[:, None, :, 4], obbs[:, None, :, 5]
+    yaw = obbs[:, None, :, 6].expand(v_prev.shape)
+    zero = torch.zeros_like(v_prev)
+
+    def at(x, w):
+        return x.gather(-1, w)[..., 0]
+
+    for _ in range(iters):
+        u, v = _obb_local_xz(pos, obbs)
+        bottom = pos[..., 1:2] - HALF_Y
+        top = pos[..., 1:2] + HALF_Y
+        v_overlap = (bottom < cy_ + hy) & (top > cy_ - hy)
+
+        du = u - torch.minimum(torch.maximum(u, -hx), hx)
+        dv = v - torch.minimum(torch.maximum(v, -hv), hv)
+        dist = torch.sqrt(du * du + dv * dv)
+        inside = (u.abs() <= hx) & (v.abs() <= hv)
+        pen_out = torch.clamp(r - dist, min=0.0)             # outside-rect case
+        pen_in = hv + r - side_prev * v                      # crossed/inside case
+        pen = torch.where(inside, pen_in, pen_out)
+        pen = torch.where(v_overlap & (hy > 0), pen, zero)   # [B, A, W]
+
+        w = pen.argmax(dim=-1, keepdim=True)                 # deepest wall per agent
+        p = at(pen, w)
+        live = p > 1e-6
+        w_inside, w_dist, w_side = at(inside, w), at(dist, w), at(side_prev, w)
+        # contact normal in the wall's frame
+        d_safe = torch.clamp(w_dist, min=1e-9)
+        nu = torch.where(w_inside, torch.zeros_like(p), at(du, w) / d_safe)
+        nv = torch.where(w_inside, w_side, at(dv, w) / d_safe)
+        # degenerate exact touch: push along the previous side of the
+        # thickness axis
+        degen = ~w_inside & (w_dist < 1e-9)
+        nu = torch.where(degen, torch.zeros_like(p), nu)
+        nv = torch.where(degen, w_side, nv)
+        w_yaw = at(yaw, w)
+        cyw, syw = torch.cos(w_yaw), torch.sin(w_yaw)
+        px = cyw * nu + syw * nv
+        pz = -syw * nu + cyw * nv
+        push = torch.stack([px, torch.zeros_like(px), pz], dim=-1)
+        pos = pos + torch.where(live[..., None], push * p[..., None], torch.zeros_like(push))
+    return pos
+
+
+def obb_floor_support(pos: torch.Tensor, obbs: torch.Tensor):
+    """Highest wall-top floor candidate under each agent.
+
+    pos [B, A, 3] (capsule centers), obbs [B, W, 7] -> (top_y [B, A],
+    found [B, A]): the largest cy + hy - dip over walls whose rectangle lies
+    within the capsule's 45-degree contact reach horizontally. stepDown
+    combines it with the voxel-grid floor scan, so agents land on and stand
+    on maze walls (the jump apex of 1.2 m clears the 0.85-1.4 m walls).
+    Without a candidate the top is -inf and `found` False."""
+    if obbs.shape[1] == 0:
+        z = torch.zeros(pos.shape[:-1], dtype=torch.float32, device=pos.device)
+        return z, torch.zeros(pos.shape[:-1], dtype=torch.bool, device=pos.device)
+    r = HALF_XZ
+    u, v = _obb_local_xz(pos, obbs)
+    hx, hz = obbs[:, None, :, 3], obbs[:, None, :, 5]
+    du = u - torch.minimum(torch.maximum(u, -hx), hx)
+    dv = v - torch.minimum(torch.maximum(v, -hz), hz)
+    d2 = du * du + dv * dv
+    # the capsule contact model of the voxel floor scan: the bottom sphere
+    # rests dip(d) below the wall top and slips off past the 45-degree
+    # contact filter (d <= r*sin(45))
+    near = (d2 <= 0.5 * r * r) & (obbs[:, None, :, 4] > 0)
+    dip = r - torch.sqrt(torch.clamp(r * r - d2, min=0.0))
+    top = obbs[:, None, :, 1] + obbs[:, None, :, 4] - dip
+    best = torch.where(near, top, torch.full_like(top, -math.inf)).amax(dim=-1)
+    return best, torch.isfinite(best)
+
+
 def resolve_agent_collisions(agents: AgentState, cfg: GridConfig = None,
                              cols: torch.Tensor = None, obbs=None) -> AgentState:
     """Pairwise capsule-capsule horizontal push-out (agents are in each
     other's collision masks, agent.cpp:63; recoverFromPenetration
     kcc.cpp:156-221). Symmetric positional correction; when the grid is
     provided the push goes through the same sweep as walking, so an agent
-    shoved toward a wall stops at the wall."""
-    if obbs is not None:
-        raise NotImplementedError("rotated-wall collision boxes are not ported yet")
+    shoved toward a wall stops at the wall, and `obbs` [B, W, 7] pushes it
+    back out of any rotated wall after the slide."""
     pos = agents.pos
     num_agents = pos.shape[1]
     if num_agents <= 1:
@@ -407,4 +545,6 @@ def resolve_agent_collisions(agents: AgentState, cfg: GridConfig = None,
     if cfg is None or cols is None:
         return agents.replace(pos=pos + push)
     new_pos = _slide_horizontal(cfg, cols, pos, push[..., 0], push[..., 2])
+    if obbs is not None:
+        new_pos = _obb_push_xz(new_pos, obbs, pos)
     return agents.replace(pos=new_pos)

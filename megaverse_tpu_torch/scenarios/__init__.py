@@ -45,6 +45,7 @@ def _ensure_builtin() -> None:
         collect,
         empty,
         football,
+        hex,
         obstacles,
         rearrange,
         sokoban,

@@ -17,7 +17,8 @@ Reward shaping (ref scenario.hpp:184-215) is runtime-mutable per agent, so it is
 carried as a [B, A, K] tensor whose columns follow `shaping_keys` order.
 
 Counterpart of megaverse_tpu/scenarios/base.py; the greedy box merge is the
-numpy path only (the native host library is not ported yet).
+numpy path only (the port's native loader, utils/native.py, serves only the
+hex scenes' portal search).
 """
 
 from __future__ import annotations
@@ -398,8 +399,8 @@ class Scenario:
         raise NotImplementedError
 
     def collision_obbs(self, state) -> "Optional[Any]":
-        """Per-env y-rotated collision boxes [W, 7] (cx, cy, cz, hx, hy, hz,
-        yaw) for scenarios whose walls are exact rotated bodies in the
+        """Per-env y-rotated collision boxes [B, W, 7] (cx, cy, cz, hx, hy,
+        hz, yaw) for scenarios whose walls are exact rotated bodies in the
         reference (hex mazes, component_hexagonal_maze.cpp:79-113), or None.
         Rows with hy <= 0 are inert padding."""
         return None
@@ -414,7 +415,7 @@ class Scenario:
         for a BATCH of envs, or None. A False bit promises no camera ray
         from that agent can hit the row's primitive this frame; the culling
         prologue ANDs it into the per-tile survival bits (the image is
-        bit-identical by construction). No ported scenario provides one yet."""
+        bit-identical by construction). The hex scenarios provide one."""
         return None
 
     def default_params(self) -> Dict[str, float]:

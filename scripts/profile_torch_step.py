@@ -15,8 +15,9 @@ Runs `VectorEnv.step_many` of megaverse_tpu_torch on one CUDA device under
     python scripts/profile_torch_step.py [--scenario TowerBuilding]
         [--num_envs 1024] [--num_agents 1] [--steps 16] [--trace out.json]
 
-`--scenario` takes any scenario of the port (Empty, TowerBuilding, Collect,
-Test, ObstaclesEasy/Medium/Hard, ObstaclesWalls/Steps/Lava). The render kernel
+`--scenario` takes any scenario of the port (all 16: Empty, TowerBuilding,
+Collect, the Obstacles family, Sokoban, Rearrange, BoxAGone, Football,
+HexExplore, HexMemory). The render kernel
 form is the one the environment selects (MEGAVERSE_RENDER_MODE etc.; default:
 the bit-walk, B2); the line names it.
 

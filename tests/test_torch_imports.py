@@ -47,8 +47,9 @@ def test_expected_modules_exist():
                  "scenarios.empty", "scenarios.components", "scenarios.tower_building",
                  "scenarios.collect", "scenarios.obstacles", "scenarios.platforms",
                  "scenarios.sokoban", "scenarios.rearrange", "scenarios.box_a_gone",
-                 "scenarios.football", "utils.refrng", "utils.synthetic", "utils.perlin",
-                 "utils.refperlin", "utils.refsort", "utils.boxoban"):
+                 "scenarios.football", "scenarios.hex", "ops.pvs", "utils.refrng",
+                 "utils.synthetic", "utils.perlin", "utils.refperlin", "utils.refsort",
+                 "utils.boxoban", "utils.native", "utils.hexmaze", "utils.pvs"):
         assert f"megaverse_tpu_torch.{want}" in names, want
     assert os.path.exists(os.path.join(ROOT, "megaverse_tpu_torch", "csrc", "render.cu"))
 

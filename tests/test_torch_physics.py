@@ -7,8 +7,12 @@ two runtimes may differ in the last place). Trajectories over tens of ticks
 are held to atol 1e-4 (hvel, which is displacement / dt: 2e-3), which leaves
 room for that last-place noise to accumulate through the integrator. The golden traces of the reference
 controller (tests/golden/kcc_golden.txt) are replayed against the port with
-the bounds the JAX package is held to, for the scenes that need no rotated
-wall boxes (those are not ported yet).
+the bounds the JAX package is held to, all ten scenes (nine with no wall
+table, high_ledge_brush through its rotated wall box, `obbs`). The
+rotated-wall passes (`_obb_push_xz`, `obb_floor_support`,
+`resolve_obb_walls`) are held against the JAX functions on random agents
+and walls to atol 1e-5 (both take sin/cos of the wall's yaw, which may
+differ in the last place; a push is a few such products).
 """
 
 import os
@@ -264,6 +268,13 @@ WORLDS = {
     "ledge_fall": [(-20, -1, -5, 20, 0, 20), (-20, -4, -20, 20, -3, -5)],
     "corner_head_on": [FLOOR, (3, 0, -3, 4, 3, -2)],
     "corner_graze": [FLOOR, (3, 0, -3, 4, 3, -2)],
+    "high_ledge_brush": [FLOOR],  # the non-voxel-aligned slab is an OBB
+}
+# Non-voxel-aligned bodies as rotated wall boxes (cx, cy, cz, hx, hy, hz,
+# yaw), as tests/test_kcc_golden.py gives them; the slab spans y in
+# [1.62, 3], z in [-4, -3].
+OBB_WORLDS = {
+    "high_ledge_brush": [(0.0, 2.31, -3.5, 20.0, 0.69, 0.5, 0.0)],
 }
 ACTIONS = {
     "flat_walk": [C.ACTION_FORWARD] * 40 + [0] * 20,
@@ -276,12 +287,14 @@ ACTIONS = {
     "ledge_fall": [C.ACTION_FORWARD] * 55,
     "corner_head_on": [C.ACTION_FORWARD] * 50,
     "corner_graze": [C.ACTION_FORWARD] * 50,
+    "high_ledge_brush": [C.ACTION_FORWARD] * 45,
 }
 # Position bounds (metres) of tests/test_kcc_golden.py, unchanged.
 POS_TOL = {
     "flat_walk": 2e-4, "wall_glance": 6e-3, "corner_stop": 6e-3,
     "voxel_step_blocked": 6e-3, "jump_land": 2e-3, "ceiling_bump": 6e-3,
     "ledge_fall": 1e-4, "corner_head_on": 2e-3, "corner_graze": 2e-3,
+    "high_ledge_brush": 0.12,
 }
 
 
@@ -303,11 +316,9 @@ def parse_golden():
     return {k: dict(v, rows=np.asarray(v["rows"], np.float64)) for k, v in scenes.items()}
 
 
-@pytest.fixture(scope="module")
-def golden_runs():
-    """All golden scenes as the envs of one batch through the port."""
-    names = sorted(WORLDS)
-    scenes = parse_golden()
+def replay(names, scenes, obbs=None):
+    """The named golden scenes as the envs of one batch through the port:
+    [L, B, 7] rows of pos, hvel x/z, vvel, onGround per tick."""
     cfg = TGridConfig(dims=(40, 8, 40), voxel_size=1.0, origin=(-20.0, -4.0, -20.0))
     grids = []
     for name in names:
@@ -326,18 +337,34 @@ def golden_runs():
     rows = []
     for i in range(length):
         agents = TP.apply_acceleration(agents, torch.from_numpy(acts[:, i:i + 1].copy()), DT)
-        agents = TP.player_step(cfg, agents, DT, cols=cols)
+        agents = TP.player_step(cfg, agents, DT, cols=cols, obbs=obbs)
         rows.append(np.concatenate([
             agents.pos[:, 0].numpy(), agents.hvel[:, 0].numpy()[:, [0, 2]],
             agents.vvel.numpy(), agents.on_ground.numpy().astype(np.float64)], axis=1))
-    return names, scenes, np.asarray(rows, np.float64)        # [L, B, 7]
+    return np.asarray(rows, np.float64)
+
+
+@pytest.fixture(scope="module")
+def golden_runs():
+    """Golden scene -> (its rows, its per-tick port rows). The scenes with
+    no rotated walls run as one batch with `obbs=None` (the path of every
+    scenario but the hex ones); those with walls as a second batch through
+    their wall table."""
+    scenes = parse_golden()
+    plain = sorted(n for n in WORLDS if n not in OBB_WORLDS)
+    walled = sorted(OBB_WORLDS)
+    obbs = torch.tensor([OBB_WORLDS[n] for n in walled], dtype=torch.float32)
+    out = {}
+    for names, rows in ((plain, replay(plain, scenes)),
+                        (walled, replay(walled, scenes, obbs=obbs))):
+        for i, name in enumerate(names):
+            out[name] = (scenes[name]["rows"], rows[:len(ACTIONS[name]), i])
+    return out
 
 
 @pytest.mark.parametrize("name", sorted(WORLDS))
 def test_kcc_golden_trace(golden_runs, name):
-    names, scenes, rows = golden_runs
-    want = scenes[name]["rows"]
-    got = rows[:len(ACTIONS[name]), names.index(name)]
+    want, got = golden_runs[name]
     assert got.shape[0] == want.shape[0]
     dpos = np.abs(got[:, 0:3] - want[:, 1:4]).max(axis=1)
     assert float(dpos.max()) <= POS_TOL[name], (
@@ -347,3 +374,75 @@ def test_kcc_golden_trace(golden_runs, name):
     assert float(np.sort(dv)[-3]) <= 0.4, f"{name}: vvel diverges {dv.max():.4f}"
     og = np.abs(got[:, 6] - want[:, 8])
     assert og.mean() <= 0.1, f"{name}: onGround disagrees on {og.mean():.0%} of ticks"
+
+
+# ---------------------------------------------------------------------------
+# Rotated wall boxes (the hex mazes' collision bodies).
+# ---------------------------------------------------------------------------
+
+def random_walls_and_agents(seed, num_envs=4, num_agents=3, num_walls=6):
+    """Thin y-rotated walls (some inert) with agents scattered around and
+    into them: inside, touching, crossed over since the previous position,
+    above the tops and beside the ends."""
+    rng = np.random.default_rng(seed)
+    w = np.zeros((num_envs, num_walls, 7), np.float32)
+    w[..., 0] = rng.uniform(-3, 3, (num_envs, num_walls))
+    w[..., 3] = rng.uniform(0.5, 2.0, (num_envs, num_walls))
+    w[..., 4] = rng.uniform(0.85, 1.4, (num_envs, num_walls))
+    w[..., 1] = w[..., 4]
+    w[..., 2] = rng.uniform(-3, 3, (num_envs, num_walls))
+    w[..., 5] = 0.15
+    w[..., 6] = rng.uniform(-np.pi, np.pi, (num_envs, num_walls))
+    w[:, -1, 4] = -1.0                                  # inert padding row
+    pick = rng.integers(0, num_walls - 1, (num_envs, num_agents))
+    wall = np.take_along_axis(w, pick[..., None], axis=1)      # [B, A, 7]
+    u = rng.uniform(-1.3, 1.3, (num_envs, num_agents)) * wall[..., 3]
+    v = rng.uniform(-0.6, 0.6, (num_envs, num_agents))
+    c, s_ = np.cos(wall[..., 6]), np.sin(wall[..., 6])
+    x = wall[..., 0] + c * u + s_ * v
+    z = wall[..., 2] - s_ * u + c * v
+    y = np.where(rng.random((num_envs, num_agents)) < 0.25,
+                 2 * wall[..., 4] + C.AGENT_HALF_HEIGHT + rng.uniform(-0.1, 0.2),
+                 C.AGENT_HALF_HEIGHT)
+    pos = np.stack([x, y, z], -1).astype(np.float32)
+    prev = pos + rng.uniform(-0.3, 0.3, pos.shape).astype(np.float32)
+    prev[..., 1] = pos[..., 1]
+    return w, pos, prev
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_obb_push_and_floor_support_match(seed):
+    w, pos, prev = random_walls_and_agents(seed)
+    tw, tpos, tprev = (torch.from_numpy(a) for a in (w, pos, prev))
+    got_push = TP._obb_push_xz(tpos, tw, tprev).numpy()
+    got_top, got_found = (t.numpy() for t in TP.obb_floor_support(tpos, tw))
+    moved = 0
+    for b in range(w.shape[0]):
+        jw, jpos, jprev = (jnp.asarray(a[b]) for a in (w, pos, prev))
+        want_push = np.asarray(JP._obb_push_xz(jpos, jw, jprev))
+        np.testing.assert_allclose(got_push[b], want_push, atol=1e-5, rtol=0,
+                                   err_msg=f"env {b} push")
+        want_top, want_found = (np.asarray(a) for a in JP.obb_floor_support(jpos, jw))
+        np.testing.assert_array_equal(got_found[b], want_found, err_msg=f"env {b}")
+        # -inf where no wall is near, in both
+        np.testing.assert_allclose(got_top[b], want_top, atol=1e-5, rtol=0,
+                                   err_msg=f"env {b} top")
+        moved += int((np.abs(want_push - pos[b]) > 1e-4).any(-1).sum())
+    assert moved >= 3, "too few agents pushed: the draw misses the walls"
+    assert got_found.any() and not got_found.all()
+    assert np.isneginf(got_top[~got_found]).all()
+
+
+def test_resolve_obb_walls_matches():
+    w, pos, prev = random_walls_and_agents(7)
+    hvel = np.random.default_rng(7).uniform(-3, 3, pos.shape).astype(np.float32)
+    hvel[..., 1] = 0.0
+    ta = TAgentState.create(*pos.shape[:2]).replace(
+        pos=torch.from_numpy(pos), hvel=torch.from_numpy(hvel))
+    got = TP.resolve_obb_walls(ta, torch.from_numpy(w), torch.from_numpy(prev))
+    for b in range(w.shape[0]):
+        ja = JAgentState.create(pos.shape[1]).replace(
+            pos=jnp.asarray(pos[b]), hvel=jnp.asarray(hvel[b]))
+        want = JP.resolve_obb_walls(ja, jnp.asarray(w[b]), jnp.asarray(prev[b]))
+        np.testing.assert_allclose(got.pos[b].numpy(), np.asarray(want.pos), atol=1e-5)
+        np.testing.assert_allclose(got.hvel[b].numpy(), np.asarray(want.hvel), atol=2e-4)

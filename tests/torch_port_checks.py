@@ -92,12 +92,14 @@ def set_agents(jenv, tenv, **fields):
         **{k: torch.from_numpy(np.array(v)) for k, v in fields.items()}))
 
 
-def scripted_pair(name, seed, prepare, params=None, short_env0=1.4):
+def scripted_pair(name, seed, prepare, params=None, short_env0=1.4,
+                  script=script_actions):
     """Both VectorEnvs (2 envs x 2 agents, no rendering) reset from `seed`,
     `prepare(jenv, tenv)` applied (state surgery from numpy, the same in
     both), env 0's episode cut to `short_env0` seconds so that one auto-reset
-    happens inside the run, then stepped through SCRIPT. Returns per-tick logs
-    of each side."""
+    happens inside the run, then stepped through len(SCRIPT) ticks of
+    `script(t)` (int32 [2, 2] bitmasks; default: SCRIPT). Returns per-tick
+    logs of each side."""
     kw = dict(num_envs=2, num_agents_per_env=2, seed=seed, render=False, params=params)
     jenv = JVectorEnv(name, **kw)
     tenv = TVectorEnv(name, device="cpu", **kw)
@@ -113,7 +115,7 @@ def scripted_pair(name, seed, prepare, params=None, short_env0=1.4):
     tenv.state = tenv.state.replace(episode_len_sec=torch.from_numpy(short.copy()))
     jlog, tlog = [], []
     for t in range(len(SCRIPT)):
-        act = script_actions(t)
+        act = script(t)
         _, jr, jd, jo = jenv.step(act)
         _, tr, td, to = tenv.step(act)
         jlog.append(dict(state=convert.to_numpy_tree(jenv.state), reward=np.asarray(jr),
@@ -209,3 +211,54 @@ def spawn_pos(cell):
     """World position of an agent spawned on voxel `cell` (scenario_default
     spawn: cell centre in x/z, agent height above the cell's floor)."""
     return np.asarray(cell, np.float32) + np.asarray([0.5, C.AGENT_HEIGHT, 0.5], np.float32)
+
+
+def facing_wall(wall, gap):
+    """Capsule center and yaw of an agent standing `gap` metres in front of
+    the face of a y-rotated wall row (cx, cy, cz, hx, hy, hz, yaw), on the
+    side nearer the maze's center, facing it."""
+    c, s = np.cos(wall[6]), np.sin(wall[6])
+    normal = np.array([s, 0.0, c])                 # the wall's local +v
+    side = -1.0 if normal[0] * wall[0] + normal[2] * wall[2] > 0 else 1.0
+    pos = (np.array([wall[0], C.AGENT_HALF_HEIGHT + 0.01, wall[2]])
+           + side * normal * (wall[5] + C.AGENT_CAPSULE_RADIUS + gap))
+    # forward is (-sin yaw, 0, -cos yaw): toward the wall
+    yaw = wall[6] if side > 0 else wall[6] + np.pi
+    return pos.astype(np.float32), np.float32(yaw)
+
+
+def above_wall(wall, height=0.3):
+    """Capsule center `height` metres above the top of a wall row."""
+    return np.array([wall[0], 2 * wall[4] + C.AGENT_HALF_HEIGHT + height, wall[2]],
+                    np.float32)
+
+
+def wall_side(wall, pos):
+    """Signed distance of a point [..., 3] from a wall row's mid-plane."""
+    c, s = np.cos(wall[6]), np.sin(wall[6])
+    return s * (pos[..., 0] - wall[0]) + c * (pos[..., 2] - wall[2])
+
+
+# the hex scenes' scripted runs: wall rows agent 0 walks into, agent 1 stands on
+WALL_AGENT0, WALL_AGENT1 = 0, 5
+
+
+def hex_script(t):
+    """Actions of the hex scenes' scripted runs (with place_at_walls).
+    Agent 0: forward (into its wall), turning left on ticks 12-17. Agent 1:
+    idle on its wall top, a jump at tick 12, forward from tick 21."""
+    a0 = F | LL if 12 <= t < 18 else F
+    a1 = J if t == 12 else (F if t > 20 else 0)
+    return np.array([[a0, a1], [a0, a1]], np.int32)
+
+
+def place_at_walls(st, pos, yaw, vvel, on_ground, envs=(0, 1)):
+    """In each of `envs` (numpy state `st`, agent arrays edited in place):
+    agent 0 1 m in front of wall WALL_AGENT0, facing it; agent 1 0.3 m above
+    the top of wall WALL_AGENT1, falling."""
+    for b in envs:
+        walls = st["scen"]["wall_obbs"][b]
+        pos[b, 0], yaw[b, 0] = facing_wall(walls[WALL_AGENT0], 1.0)
+        pos[b, 1] = above_wall(walls[WALL_AGENT1])
+        vvel[b, 1] = 0.0
+        on_ground[b, 1] = False
