@@ -35,8 +35,8 @@ megaverse_tpu_torch/csrc with nvcc, then
      flush, for TowerBuilding 1024 x 1, Empty 4096 x 1, Collect 1024 x 1,
      ObstaclesHard 1024 x 1, Sokoban, Rearrange, BoxAGone and Football 1024 x 1
      (2 chunks each), HexExplore and HexMemory 1024 x 1 under the default
-     mode (B2, with the PVS mask of the hex scenes); one chunk of 16 steps
-     of TowerBuilding 1024 x 1 (reset included) with
+     mode (B2, with the PVS mask of the hex scenes); on the TowerBuilding
+     1024 x 1 env after its run one chunk of 16 steps with
      MEGAVERSE_NO_CLUSTER_CULL=1 (B1), and on the Collect 1024 x 1 env after
      its run one chunk of 16 steps each with MEGAVERSE_RENDER_MODE=super
      (B5), plus MEGAVERSE_NO_SUPERCLUSTERS=1 (B4, per-tile lists), plus
@@ -54,14 +54,34 @@ megaverse_tpu_torch/csrc with nvcc, then
      form 0 levels from its plain version at the end states of Sokoban,
      Rearrange, BoxAGone and Football; B2 with the PVS mask equal to B1 at
      the hex end states);
-  4. times every form and its plain version at the Collect 1024 x 1 shape
+  4. the training path (megaverse_tpu_torch.rl), at the full width of the
+     repo's one model (hidden 512, 2-layer GRU, 72x128 observations): the
+     learner's `_update_from_batch` on the card against the same update on
+     the CPU from the same parameters, on a numpy-seeded batch (8 envs x 2
+     agents x 32 steps), for the float32 model (loss 1e-4 relative,
+     gradients 2e-3 of their norm, parameters after 1e-4 on all but 1e-4 of
+     them) and the bfloat16 one (loss 1e-2, gradients 2e-2, parameters after
+     1e-4 on all but 1e-2 of them); every parameter within 2 lr, the most
+     one Adam step can move it. The gradients differ where a ReLU's input
+     lies within rounding of zero on one device and not the other: such a
+     unit switches its whole gradient on or off (on this batch one unit,
+     5.3e-4 of the gradients' norm in float32: scripts/
+     learner_grad_agreement.py). A gradient entry smaller than that may take
+     either sign, and Adam's first step moves it by lr whatever its size.
+     Then `rl.train.main` trains Collect 512 envs x 2
+     agents for 3 updates of rollout 32 (B2 launches == 3 * 32 + 1: one at
+     init, one per rollout step; finite loss; parameters moved), and
+     `rl.enjoy.main` plays the checkpoint it wrote on the card for 20 steps
+     (B2 launches == 21);
+  5. times every form and its plain version at the Collect 1024 x 1 shape
      (B6 over B2, B3, B4's per-tile lists and B5; B1, B2, B3 and B6 over B2
      also at the TowerBuilding 1024 x 1 shape; B2 at the end state of each
      run of Sokoban, Rearrange, BoxAGone, Football and the hex scenes, the
      latter with and without the PVS mask) and prints the `kernels` line (times,
      launches, largest error, roofline bound, clusters run per pixel).
 
-`--phase kernels` stops after step 2.
+`--phase kernels` stops after step 2, `--phase train` runs steps 1 and 4
+only (neither prints the result line).
 
 Any failed check raises and the script exits non-zero. The last line of the
 output is {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -118,6 +138,62 @@ HEX_SCENES = {"HexExplore": "hexexplore_1024x1", "HexMemory": "hexmemory_1024x1"
 CASE_FORM = {"b2": "render_b2", "b3": "render_b3", "b4_agent": "render_b4",
              "b4_agent_dist": "render_b4", "b4_tile": "render_b4",
              "b4_shuffled": "render_b4", "b5": "render_b5"}
+
+
+# rollout, envs, agents, hidden of the learner's card-vs-CPU check
+UPDATE_SHAPE = (32, 8, 2, 512)
+
+
+def update_check_inputs():
+    """numpy inputs of the learner's card-vs-CPU check at full width (numpy
+    seed 0): a rollout batch (packed observations, actions, a behaviour logp
+    around the uniform policy's so that the ratio clip acts, values, rewards,
+    5 % done rows, the initial carry), the last observations and carry, and
+    fresh parameters (flax's initializers from torch seed 0) on the CPU."""
+    import megaverse_tpu_torch.constants as C
+    from megaverse_tpu_torch.models.actor_critic import ActorCritic
+
+    t_len, envs, agents, hidden = UPDATE_SHAPE
+    rng = np.random.default_rng(0)
+    carry = 2 * hidden
+    batch = dict(
+        obs=rng.integers(0, 1 << 24, (t_len, envs, agents, 72, 128), dtype=np.int32),
+        actions=np.stack([rng.integers(0, n, (t_len, envs, agents))
+                          for n in C.ACTION_SPACE_SIZES], -1).astype(np.int64),
+        logp=(-5.78 + rng.normal(0, 0.3, (t_len, envs, agents))).astype(np.float32),
+        value=rng.normal(0, 0.5, (t_len, envs, agents)).astype(np.float32),
+        reward=rng.normal(0, 1.0, (t_len, envs, agents)).astype(np.float32),
+        done=rng.random((t_len, envs)) < 0.05,
+        init_carry=rng.normal(0, 0.5, (envs, agents, carry)).astype(np.float32))
+    last_obs = rng.integers(0, 1 << 24, (envs, agents, 72, 128), dtype=np.int32)
+    last_carry = rng.normal(0, 0.5, (envs, agents, carry)).astype(np.float32)
+    init = ActorCritic(hidden_size=hidden, generator=torch.Generator().manual_seed(0))
+    params = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    return batch, last_obs, last_carry, params
+
+
+def update_check_setup(dev, model_dtype, inputs):
+    """(learner, learner state, rollout batch) of the check on `dev`; with a
+    float64 model every float input and parameter is float64 too."""
+    from megaverse_tpu_torch.rl import learner as L
+    from megaverse_tpu_torch.scenarios import make_scenario
+
+    batch_np, last_obs, last_carry, params0 = inputs
+    t_len, envs, agents, hidden = UPDATE_SHAPE
+    wide = torch.float64 if model_dtype == torch.float64 else torch.float32
+
+    def put(x):
+        t = torch.as_tensor(x)
+        return (t.to(wide) if t.is_floating_point() else t).to(dev)
+
+    learner = L.Learner(make_scenario("Collect", num_agents=agents), envs, L.TrainConfig(
+        rollout=t_len, hidden_size=hidden, model_dtype=model_dtype), device=dev)
+    params = {k: put(v) for k, v in params0.items()}
+    batch = L.RolloutBatch(*(put(batch_np[k]) for k in (
+        "obs", "actions", "logp", "value", "reward", "done", "init_carry")))
+    ls = L.LearnerState(params, L.adam_init(params), None, put(last_obs), put(last_carry),
+                        torch.Generator(dev).manual_seed(0), 0)
+    return learner, ls, batch
 
 
 def emit(obj) -> None:
@@ -521,8 +597,7 @@ class Smoke:
         tower = self.drive("tower_1024x1", "TowerBuilding", 1024, 1, 64, 3, keep=True)
         empty = self.drive("empty_4096x1", "Empty", 4096, 1, 64, 2, keep=True)
         with ModeEnv(MEGAVERSE_NO_CLUSTER_CULL="1"):
-            self.drive("tower_1024x1_unculled", "TowerBuilding", 1024, 1, 16, 1,
-                       form="render_b1")
+            self.drive_mode("tower_1024x1_unculled", "TowerBuilding", tower, "render_b1")
         collect = self.drive("collect_1024x1", "Collect", 1024, 1, 64, 3, keep=True)
         # The other forms at the same width, on the Collect env just driven
         # (a new env per form would generate 2,048 more layouts on the host
@@ -599,6 +674,142 @@ class Smoke:
         return tower, collect, {**new_envs, **hex_envs}
 
     # ------------------------------------------------------------- phase 4
+    def train_update_check(self) -> None:
+        """The learner's update on the card against the same update on the
+        CPU, from the same parameters and batch (numpy seed 0), at full width:
+        hidden 512, 72x128, 8 envs x 2 agents x 32 steps."""
+        from megaverse_tpu_torch.rl import learner as L
+
+        t_len, envs, agents, hidden = UPDATE_SHAPE
+        inputs = update_check_inputs()
+        params0 = inputs[-1]
+        lr = L.TrainConfig().lr
+        # (dtype, loss, gradients, parameters after one update, share of the
+        # parameters allowed past that): see the module docstring
+        for dtype, tol_loss, tol_grad, tol_param, tol_share in (
+                (torch.float32, 1e-4, 2e-3, 1e-4, 1e-4),
+                (torch.bfloat16, 1e-2, 2e-2, 1e-4, 1e-2)):
+            out = {}
+            for dev in (self.dev, torch.device("cpu")):
+                learner, ls, batch = update_check_setup(dev, dtype, inputs)
+                params = ls.params
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    _, last_value, _ = learner._policy(params, ls.obs, ls.carry)
+                    adv, ret = learner._gae(batch, last_value)
+                _, _, grads = learner.loss_and_grads(params, batch, adv, ret)
+                ls2, metrics = learner._update_from_batch(ls, batch)
+                loss = float(metrics["loss"])
+                out[dev.type] = dict(loss=loss, grads={k: g.cpu() for k, g in grads.items()},
+                                     params={k: p.cpu() for k, p in ls2.params.items()},
+                                     seconds=time.perf_counter() - t0)
+            card, cpu = out[self.dev.type], out["cpu"]
+            loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+            g_norm = torch.sqrt(sum((g.double() ** 2).sum() for g in cpu["grads"].values()))
+            g_err = float(torch.sqrt(sum(((card["grads"][k].double() - g.double()) ** 2).sum()
+                                         for k, g in cpu["grads"].items())) / g_norm)
+            p_diff = torch.cat([(card["params"][k] - p).abs().flatten()
+                                for k, p in cpu["params"].items()])
+            p_err = p_diff.max().item()
+            share = (p_diff > tol_param).float().mean().item()
+            moved = max((p - params0[k]).abs().max().item() for k, p in card["params"].items())
+            finite = all(bool(torch.isfinite(p).all()) for p in card["params"].values())
+            emit({"phase": "train_update_vs_cpu", "dtype": str(dtype).split(".")[-1],
+                  "shape": [t_len, envs, agents, 72, 128], "hidden": hidden,
+                  "loss_card": card["loss"], "loss_cpu": cpu["loss"],
+                  "loss_rel_err": loss_err, "grad_rel_err": g_err,
+                  "grad_norm": float(g_norm), "params_max_abs_err": p_err,
+                  "params_share_past_tol": share, "params": int(p_diff.numel()),
+                  "params_moved": moved, "card_seconds": card["seconds"],
+                  "cpu_seconds": cpu["seconds"],
+                  "tolerances": [tol_loss, tol_grad, tol_param, tol_share], "gpu": self.smi})
+            if not (np.isfinite(card["loss"]) and finite and moved > 0):
+                raise AssertionError(f"train update {dtype}: non-finite or no movement")
+            # one Adam step moves an entry by at most lr: no two runs differ
+            # by more than 2 lr
+            if (loss_err > tol_loss or g_err > tol_grad or share > tol_share
+                    or p_err > 2 * lr + 1e-6):
+                raise AssertionError(f"train update {dtype}: card vs CPU loss {loss_err}, "
+                                     f"grads {g_err}, params {p_err} ({share} past {tol_param})")
+
+    def train_path(self) -> None:
+        """`rl.train.main` on Collect 512 x 2 at the model's full width for
+        3 updates of rollout 32, then `rl.enjoy.main` on its checkpoint."""
+        import tempfile
+
+        from megaverse_tpu_torch.convert import actor_critic_from_flax
+        from megaverse_tpu_torch.models.actor_critic import ActorCritic
+        from megaverse_tpu_torch.rl import enjoy, train
+        from megaverse_tpu_torch.rl.checkpoint import load_checkpoint
+        RC = self.RC
+        envs, agents, rollout, updates, seed = 512, 2, 32, 3, 42
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--env", "Collect", "--num_envs", str(envs),
+                    "--num_agents_per_env", str(agents),
+                    "--train_for_env_steps", str(updates * rollout * envs),
+                    "--seed", str(seed), "--train_dir", tmp]
+            torch.cuda.synchronize()
+            RC.reset_launch_counts()
+            t0 = time.perf_counter()
+            if train.main(argv) != 0:
+                raise AssertionError("rl.train.main did not return 0")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(RC.LAUNCHES)
+            out_dir = os.path.join(tmp, "default")
+            with open(os.path.join(out_dir, "train_summary.json")) as f:
+                summary = json.load(f)
+            ckpt_path = os.path.join(out_dir, "checkpoint.pkl")
+            ckpt = load_checkpoint(ckpt_path)
+            # the parameters the trainer started from: the learner's init
+            # (flax's initializers from the task's seed, on the card)
+            start = ActorCritic().to(self.dev)
+            start.reset_parameters(torch.Generator(self.dev).manual_seed(seed))
+            trained = actor_critic_from_flax(ckpt["params"])
+            moved = max((trained[k] - v.cpu()).abs().max().item()
+                        for k, v in start.state_dict().items())
+            m = summary["metrics"]
+            emit({"phase": "train", "argv": argv[:-2], "updates": summary["updates"],
+                  "env_steps": summary["env_steps"],
+                  "env_steps_per_s": summary["env_steps_per_s"],
+                  "samples_per_s": summary["samples_per_s"],
+                  "rollout_ms": summary["rollout_ms"], "update_ms": summary["update_ms"],
+                  "setup_seconds": summary["setup_seconds"], "train_seconds": summary["seconds"],
+                  "wall_seconds": wall,
+                  "peak_device_memory_bytes": summary["peak_device_memory_bytes"],
+                  "launches": counts, "loss": m["loss"], "entropy": m["entropy"],
+                  "reward_mean": m["reward_mean"], "params_moved": moved,
+                  "checkpoint_steps": ckpt["steps"], "gpu": self.smi,
+                  "note": "first reading, not a claim"})
+            want = updates * rollout + 1
+            for k, n in counts.items():
+                if n != (want if k == "render_b2" else 0):
+                    raise AssertionError(f"train: launches {counts}, expected {want} of "
+                                         "render_b2 and no other")
+                self.launches[k] += n
+            if not all(np.isfinite(v) for v in m.values()) or moved <= 0:
+                raise AssertionError(f"train: metrics {m}, parameters moved {moved}")
+            if summary["updates"] != updates or ckpt["steps"] != updates * rollout * envs:
+                raise AssertionError(f"train: {summary['updates']} updates, checkpoint at "
+                                     f"{ckpt['steps']} steps")
+            steps = 20
+            RC.reset_launch_counts()
+            t0 = time.perf_counter()
+            if enjoy.main(["--env", "Collect", "--num_agents_per_env", str(agents),
+                           "--checkpoint", ckpt_path, "--episodes", "1",
+                           "--max_steps", str(steps)]) != 0:
+                raise AssertionError("rl.enjoy.main did not return 0")
+            torch.cuda.synchronize()
+            counts = dict(RC.LAUNCHES)
+            emit({"phase": "enjoy", "steps": steps, "launches": counts,
+                  "seconds": time.perf_counter() - t0})
+            for k, n in counts.items():
+                if n != (steps + 1 if k == "render_b2" else 0):
+                    raise AssertionError(f"enjoy: launches {counts}, expected {steps + 1} "
+                                         "of render_b2 and no other")
+                self.launches[k] += n
+
+    # ------------------------------------------------------------- phase 5
     def time_forms(self, env, cases_wanted):
         """Kernel and plain-version milliseconds, bytes, operations and bound
         of the wanted cases at the state `env` ended on ("b2_pvs": B2 with
@@ -737,22 +948,31 @@ class Smoke:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phase", default="all", choices=["all", "kernels"],
-                    help="'kernels' stops after the kernel-vs-plain comparison "
-                         "(prints no result line)")
+    ap.add_argument("--phase", default="all", choices=["all", "kernels", "train"],
+                    help="'kernels' stops after the kernel-vs-plain comparison, "
+                         "'train' runs only the training path (neither prints "
+                         "the result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check only runs on the GPU",
               file=sys.stderr)
         return 2
+    # float32 products in full float32 (the learner's card-vs-CPU check)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     smoke = Smoke()
     smoke.machine()
+    if args.phase == "train":
+        smoke.train_update_check()
+        smoke.train_path()
+        return 0
     smoke.kernels_vs_plain()
     if args.phase == "kernels":
         return 0
     tower, collect, new_envs = smoke.main_path()
+    smoke.train_update_check()
+    smoke.train_path()
     smoke.kernels_line(tower, collect, new_envs)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smoke.smi, flush=True)

@@ -1,10 +1,11 @@
-"""State carried across the two packages.
+"""State and weights carried across the two packages.
 
-The system has no weights on its step path; layouts and states are what a
-caller would move between the JAX package and this port. These functions turn
-`SceneData` / `EnvState` given as numpy (field by field: a dict of arrays, with
-nested dicts for `props`, `agents` and `scen`) into the port's dataclasses and
-back. They take numpy only, so the port imports nothing of the JAX package; a
+Layouts and states are what a caller moves between the JAX package and this
+port on the step path. These functions turn `SceneData` / `EnvState` given as
+numpy (field by field: a dict of arrays, with nested dicts for `props`,
+`agents` and `scen`) into the port's dataclasses and back; and the policy's
+flax parameter tree (as numpy) into the port's `ActorCritic` state_dict and
+back (`actor_critic_from_flax`, `actor_critic_to_flax`). They take numpy only, so the port imports nothing of the JAX package; a
 caller holding JAX objects flattens them with `to_numpy_tree` (duck-typed on
 dataclass-like objects) first.
 
@@ -20,7 +21,8 @@ Differences bridged here:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Type
+import re
+from typing import Any, Dict, Mapping, Optional, Type
 
 import numpy as np
 import torch
@@ -134,3 +136,86 @@ def render_inputs_from_numpy(tables: Dict[str, Any], device="cpu") -> Dict[str, 
     return {k: (torch.from_numpy(np.ascontiguousarray(v)).to(device)
                 if isinstance(v, np.ndarray) else v)
             for k, v in tables.items()}
+
+
+# ---------------------------------------------------------------------------
+# Policy weights: flax's ActorCritic parameter tree <-> the port's state_dict.
+# ---------------------------------------------------------------------------
+
+# (port module path, flax module path) patterns; the parameter name maps
+# weight <-> kernel and bias <-> bias
+_MODULE_PATHS = (
+    (r"encoder\.convs\.(\d+)", r"encoder/Conv_\1"),
+    (r"encoder\.dense", r"encoder/Dense_0"),
+    (r"core\.(\d+)\.(ir|iz|hr|hz|hn)", r"core_\1/\2"),
+    (r"core\.(\d+)\.in_", r"core_\1/in"),
+    (r"action_heads\.(\d+)", r"action_heads_\1"),
+    (r"value_head", r"value_head"),
+)
+_FLAX_MODULE_PATHS = (
+    (r"encoder/Conv_(\d+)", r"encoder.convs.\1"),
+    (r"encoder/Dense_0", r"encoder.dense"),
+    (r"core_(\d+)/(ir|iz|hr|hz|hn)", r"core.\1.\2"),
+    (r"core_(\d+)/in", r"core.\1.in_"),
+    (r"action_heads_(\d+)", r"action_heads.\1"),
+    (r"value_head", r"value_head"),
+)
+
+
+def _map_path(path: str, table) -> str:
+    for pat, repl in table:
+        if re.fullmatch(pat, path):
+            return re.sub(pat, repl, path)
+    raise KeyError(f"no counterpart for parameter module {path!r}")
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def actor_critic_from_flax(params) -> Dict[str, torch.Tensor]:
+    """The JAX package's ActorCritic parameters ({'params': {...}} or the
+    inner tree, numpy or array-like leaves) -> a state_dict of the port's
+    `models.actor_critic.ActorCritic`. Dense kernels [in, out] become
+    weights [out, in]; conv kernels HWIO become OIHW. The dense layer after
+    the convolutions keeps flax's (h, w, c) row order: the port flattens its
+    activations in that order."""
+    tree = params.get("params", params)
+    sd = {}
+    for path, leaf in _flatten(tree):
+        arr = np.asarray(leaf, dtype=np.float32)
+        module = _map_path("/".join(path[:-1]), _FLAX_MODULE_PATHS)
+        if path[-1] == "kernel":
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            sd[module + ".weight"] = torch.tensor(np.ascontiguousarray(arr))
+        elif path[-1] == "bias":
+            sd[module + ".bias"] = torch.tensor(arr)
+        else:
+            raise KeyError(f"unknown flax parameter {'/'.join(path)!r}")
+    return sd
+
+
+def actor_critic_to_flax(state_dict) -> Dict[str, Any]:
+    """Inverse of `actor_critic_from_flax`: a state_dict (tensors on any
+    device) -> {'params': {...}} of float32 numpy arrays in flax's layout,
+    which the JAX package's `ActorCritic.apply` takes."""
+    out: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        module, _, name = key.rpartition(".")
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if name == "weight":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+            leaf = "kernel"
+        elif name == "bias":
+            leaf = "bias"
+        else:
+            raise KeyError(f"unknown parameter {key!r}")
+        node = out
+        for part in _map_path(module, _MODULE_PATHS).split("/"):
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": out}

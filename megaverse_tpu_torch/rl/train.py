@@ -1,0 +1,383 @@
+"""APPO-style training CLI (counterpart of megaverse_tpu/rl/train.py).
+
+Equivalent of megaverse_rl/train_megaverse.py (Sample Factory run_rl): one
+process drives the whole pipeline on one card: batched env rollouts (physics
+and the render kernel, observations kept on the device) and PPO updates, with
+host-side layout generation refilling the auto-reset buffer between rollouts.
+
+Includes the reference integration features: team-spirit annealing 0 -> 1
+over max_team_spirit_steps via the runtime reward-shaping API
+(megaverse_rl/megaverse_utils.py:75-84), reward-shaping overrides, multitask
+round-robin over one shared policy, checkpoints and resume.
+
+Usage:
+  python -m megaverse_tpu_torch.rl.train --env Collect --num_envs 512 \\
+      --train_for_env_steps 1000000 --num_agents_per_env 2
+
+Runs on the GPU; `--device cpu` runs it on the CPU (the renderer then takes
+the kernel's plain PyTorch version). At the end it writes the checkpoint and
+`train_summary.json` (rates, per-update times, last metrics) into
+<train_dir>/<experiment>.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from megaverse_tpu_torch import constants as C
+from megaverse_tpu_torch.convert import actor_critic_from_flax
+from megaverse_tpu_torch.env import render_batch
+from megaverse_tpu_torch.rl.checkpoint import is_port_opt_state, load_checkpoint, save_checkpoint
+from megaverse_tpu_torch.rl.learner import Learner, TrainConfig, opt_state_from_numpy
+from megaverse_tpu_torch.scenarios import make_scenario
+from megaverse_tpu_torch.types import scene_to_device, stack_scenes, state_from_scene, tree_scatter
+from megaverse_tpu_torch.vector_env import refill_slot_rung
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--env", default="Empty", help="scenario name")
+    p.add_argument("--num_envs", type=int, default=256)
+    p.add_argument("--megaverse_num_agents_per_env", "--num_agents_per_env",
+                   dest="num_agents_per_env", type=int, default=1)
+    p.add_argument("--train_for_env_steps", type=float, default=1e6)
+    p.add_argument("--rollout", type=int, default=32)
+    p.add_argument("--hidden_size", type=int, default=512)
+    p.add_argument("--use_rnn", type=int, default=1)
+    p.add_argument("--rnn_num_layers", type=int, default=2)
+    p.add_argument("--reward_clip", type=float, default=30.0,
+                   help="clamp |reward| before the PPO update; 0 disables")
+    p.add_argument("--max_grad_norm", type=float, default=4.0,
+                   help="global grad-norm clip; 0 disables (reference runs)")
+    p.add_argument("--learning_rate", type=float, default=1e-4)
+    p.add_argument("--lr_final", type=float, default=-1.0,
+                   help=">=0: linear lr decay to this value over the run")
+    p.add_argument("--exploration_coeff", type=float, default=0.001)
+    p.add_argument("--exploration_final", type=float, default=-1.0,
+                   help=">=0: anneal the exploration coefficient to this "
+                        "value with training progress")
+    p.add_argument("--ppo_epochs", type=int, default=1,
+                   help="PPO epochs over each rollout (SF --ppo_epochs)")
+    p.add_argument("--num_minibatches", type=int, default=1,
+                   help="env-axis minibatches per epoch")
+    p.add_argument("--gamma", type=float, default=0.997)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a GPU) or cpu")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="devices to shard the env batch over; only 1 so far")
+    p.add_argument("--train_dir",
+                   default=os.path.join(tempfile.gettempdir(), "megaverse_tpu_torch_train"))
+    p.add_argument("--experiment", default="default")
+    p.add_argument("--save_every_steps", type=float, default=5e5)
+    p.add_argument("--restart_behavior", choices=["resume", "restart"],
+                   default="resume",
+                   help="resume: restore checkpoint.pkl if present (Sample "
+                        "Factory --restart_behavior); restart: train fresh")
+    # team spirit annealing (megaverse_params.py:41-55)
+    p.add_argument("--megaverse_increase_team_spirit", type=int, default=0)
+    p.add_argument("--megaverse_max_team_spirit_steps", type=float, default=1e9)
+    p.add_argument("--set_shaping", action="append", default=[],
+                   metavar="KEY=VALUE",
+                   help="override a reward-shaping weight for training "
+                        "(repeatable). Uses the runtime-mutable shaping API "
+                        "the reference exposes for PBT "
+                        "(scenario.hpp:209-215, megaverse_utils.py:80-84); "
+                        "evaluation keeps scenario defaults.")
+    return p.parse_args(argv)
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("training runs on a CUDA device by default and none is "
+                           "available; pass --device cpu to run on the CPU")
+    return device
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class _Task:
+    """One scenario's env batch, generators and learner state.
+
+    Multitask training keeps one _Task per scenario; the policy and optimizer
+    state are shared and round-robined across tasks: the analogue of the
+    reference multitask factory assigning one task per Sample Factory worker
+    while a single learner updates shared weights
+    (megaverse/megaverse_env.py:27-39, train_megaverse.py:32-42).
+    """
+
+    def __init__(self, name: str, args, cfg: TrainConfig, seed: int, device: torch.device):
+        self.name = name
+        self.scenario = make_scenario(name, num_agents=args.num_agents_per_env)
+        self.num_envs = args.num_envs
+        self.cfg = cfg
+        self.device = device
+        self._segments = self.scenario.cfg.prop_segments
+        self._hw_boxes = 0
+        self._hw_props = [0] * len(self._segments) if self._segments else 0
+
+        ss = np.random.SeedSequence(seed)
+        self.gens = [np.random.Generator(np.random.PCG64(s)) for s in ss.spawn(self.num_envs)]
+
+        first = self.gen_batch(range(self.num_envs))
+        self.next_scenes = self.gen_batch(range(self.num_envs))
+        # Render-table bucket (see env.render_batch): 1.5x headroom over the
+        # initial high-water mark; rebuilt when a later layout exceeds it.
+        self.bucket = self._bucket_for(margin=1.5)
+        self.learner = Learner(self.scenario, self.num_envs, cfg, render_bucket=self.bucket,
+                               device=device)
+        rng = torch.arange(self.num_envs, dtype=torch.int64, device=device) + (seed << 20)
+        env_state = state_from_scene(first, args.num_agents_per_env, rng)
+        obs = render_batch(self.scenario, env_state, fmt="packed", bucket=self.bucket,
+                           mode=self.learner.render_mode)
+        self.ls = self.learner.init(seed, env_state, obs)
+        self.shaping = torch.from_numpy(np.tile(
+            self.scenario.shaping_array()[None], (self.num_envs, 1, 1))).to(device)
+        self.spirit_col = self.scenario.all_shaping_keys.index(C.P_TEAM_SPIRIT)
+        # The asynchronous refill generates the layouts of the envs that reset
+        # during rollout k while rollout k+1 runs, and lands them before rollout
+        # k+2: safe only while no env can finish twice in that window. Shorter
+        # episodes take the synchronous refill (as VectorEnv.step_many guards
+        # its overlap).
+        min_ep_steps = int(float(self.scenario.cfg.params.get(C.P_EPISODE_LENGTH_SEC, 60.0))
+                           / self.scenario.cfg.dt)
+        self.async_refill = min_ep_steps >= 3 * cfg.rollout
+        self._pool = None
+        self._pending = None
+
+    def _bucket_for(self, margin: float):
+        roundup = lambda n, q: ((max(int(n), 1) + q - 1) // q) * q
+        if self._segments:
+            # segmented prop tables (see render_batch): per-segment counts
+            pb = tuple(roundup(n * margin, 4) for n in self._hw_props)
+        else:
+            pb = roundup(self._hw_props * margin, 4)
+        return (roundup(self._hw_boxes * margin, 4), pb)
+
+    def _bucket_grew(self) -> bool:
+        if self._hw_boxes > self.bucket[0]:
+            return True
+        if self._segments:
+            return any(n > b for n, b in zip(self._hw_props, self.bucket[1]))
+        return self._hw_props > self.bucket[1]
+
+    def _note_high_water(self, scenes) -> None:
+        for sc in scenes:
+            self._hw_boxes = max(self._hw_boxes, int((np.asarray(sc.box_color) > 0).sum()))
+            types = np.asarray(sc.props.type)
+            if self._segments:
+                for i, (_, start, cap) in enumerate(self._segments):
+                    n = int((types[start:start + cap] != C.PROP_NONE).sum())
+                    self._hw_props[i] = max(self._hw_props[i], n)
+            else:
+                self._hw_props = max(self._hw_props, int((types != C.PROP_NONE).sum()))
+
+    def _generate(self, idx, pad_to: int = 0):
+        """Layouts for envs `idx`, stacked on the host (no device calls: it
+        also runs on the refill thread)."""
+        scenes = [self.scenario.generate_checked(self.gens[i]) for i in idx]
+        self._note_high_water(scenes)
+        return stack_scenes(scenes, pad_to=pad_to)
+
+    def gen_batch(self, idx):
+        return scene_to_device(self._generate(idx), self.device)
+
+    def refill(self) -> None:
+        """Regenerate the buffered layouts of the envs that reset during the
+        last rollout (they consumed theirs: num_frames < rollout). Each env's
+        generator stream advances only when its slot refills, so layouts are
+        deterministic given the same reset pattern."""
+        if self._pending is not None:
+            # the previous rollout's asynchronous generation
+            idx, batch = self._pending.result()
+            self._pending = None
+            self._apply_refill(idx, batch)
+        nf = self.ls.env_state.num_frames.cpu().numpy()
+        idx = np.nonzero(nf < self.cfg.rollout)[0].tolist()
+        if not idx:
+            return
+        slots = refill_slot_rung(len(idx), self.num_envs)
+        if not self.async_refill:
+            self._apply_refill(idx, self._generate(idx, pad_to=slots))
+            return
+        if self._pool is None:
+            # one worker: per-env generator streams advance in submission order
+            self._pool = ThreadPoolExecutor(1, thread_name_prefix=f"gen-{self.name}")
+        self._pending = self._pool.submit(lambda: (idx, self._generate(idx, pad_to=slots)))
+
+    def _apply_refill(self, idx, batch) -> None:
+        # fixed slot ladder, padded host-side; the sentinel rows (index
+        # num_envs) are dropped by the scatter
+        n = len(idx)
+        slots = refill_slot_rung(n, self.num_envs)
+        idx_dev = torch.from_numpy(np.concatenate(
+            [np.asarray(idx, np.int64), np.full((slots - n,), self.num_envs, np.int64)]
+        )).to(self.device)
+        self.next_scenes = tree_scatter(
+            self.next_scenes, idx_dev, scene_to_device(batch, self.device, non_blocking=True))
+        if self._bucket_grew():
+            self.bucket = self._bucket_for(margin=1.5)
+            self.learner.render_bucket = self.bucket
+            print(f"[{self.name}] render bucket grew to {self.bucket}", flush=True)
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
+
+
+def resolve_task_list(env_name: str):
+    """'multitask_megaverse8' / 'multitask_obstacles' -> task list, else [env]."""
+    if "multitask" not in env_name:
+        return [env_name]
+    from megaverse_tpu_torch.gym_env import MEGAVERSE8, OBSTACLES_MULTITASK
+
+    if env_name.endswith("megaverse8"):
+        return list(MEGAVERSE8)
+    if env_name.endswith("obstacles"):
+        return list(OBSTACLES_MULTITASK)
+    raise NotImplementedError(env_name)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.n_devices not in (None, 1):
+        raise NotImplementedError("--n_devices > 1: the data-parallel scale-out "
+                                  "(megaverse_tpu/parallel) is not ported yet")
+    device = resolve_device(args.device)
+    num_envs = args.num_envs
+    cfg = TrainConfig(rollout=args.rollout, lr=args.learning_rate,
+                      gamma=args.gamma, hidden_size=args.hidden_size,
+                      use_rnn=bool(args.use_rnn),
+                      rnn_num_layers=args.rnn_num_layers,
+                      reward_clip=args.reward_clip,
+                      max_grad_norm=args.max_grad_norm,
+                      num_epochs=args.ppo_epochs,
+                      num_minibatches=args.num_minibatches,
+                      exploration_coeff=args.exploration_coeff,
+                      lr_final=args.lr_final,
+                      exploration_final=args.exploration_final,
+                      total_env_steps=float(args.train_for_env_steps))
+
+    t_setup = time.perf_counter()
+    names = resolve_task_list(args.env)
+    tasks = [_Task(n, args, cfg, args.seed + 1000 * i, device) for i, n in enumerate(names)]
+    try:
+        return _train(args, cfg, tasks, device, num_envs, time.perf_counter() - t_setup)
+    finally:
+        for t in tasks:
+            t.close()
+
+
+def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: float):
+    for spec in args.set_shaping:
+        key, _, val = spec.partition("=")
+        for t in tasks:
+            if key in t.scenario.all_shaping_keys:
+                t.shaping[:, :, t.scenario.all_shaping_keys.index(key)] = float(val)
+                print(f"[shaping] {t.name}: {key} = {float(val)}", flush=True)
+            else:
+                print(f"[shaping] {t.name} has no key {key!r}; skipped", flush=True)
+    # Policy weights and optimizer state are shared across tasks.
+    params, opt_state = tasks[0].ls.params, tasks[0].ls.opt_state
+
+    out_dir = Path(args.train_dir) / args.experiment
+    out_dir.mkdir(parents=True, exist_ok=True)
+    total = int(args.train_for_env_steps)
+    steps_done = 0
+    ckpt_path = out_dir / "checkpoint.pkl"
+    if args.restart_behavior == "resume" and ckpt_path.exists():
+        ckpt = load_checkpoint(ckpt_path)
+        if not is_port_opt_state(ckpt["opt_state"]):
+            raise ValueError(f"{ckpt_path} holds optax's optimizer state (a checkpoint "
+                             "of the JAX package): resume needs the port's own")
+        params = {k: v.to(device) for k, v in actor_critic_from_flax(ckpt["params"]).items()}
+        opt_state = opt_state_from_numpy(ckpt["opt_state"], device)
+        steps_done = int(ckpt["steps"])
+        print(f"resumed from {ckpt_path} at {steps_done:,} env steps", flush=True)
+    last_save = steps_done
+    start_steps = steps_done
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    rollout_ms, update_ms = [], []
+    metrics = {}
+    t0 = time.perf_counter()
+    it = 0
+    while steps_done < total:
+        task = tasks[it % len(tasks)]
+        ls = task.ls._replace(params=params, opt_state=opt_state)
+        _sync(device)
+        t_start = time.perf_counter()
+        ls, batch = task.learner.collect_rollout(ls, task.next_scenes, task.shaping)
+        _sync(device)
+        t_mid = time.perf_counter()
+        ls, metrics = task.learner._update_from_batch(ls, batch)
+        _sync(device)
+        rollout_ms.append(1e3 * (t_mid - t_start))
+        update_ms.append(1e3 * (time.perf_counter() - t_mid))
+        task.ls = ls
+        params, opt_state = ls.params, ls.opt_state
+        steps_done += cfg.rollout * num_envs
+        it += 1
+        task.refill()
+
+        # team spirit annealing (megaverse_utils.py:75-84)
+        if args.megaverse_increase_team_spirit:
+            frac = min(1.0, steps_done / args.megaverse_max_team_spirit_steps)
+            for t in tasks:
+                t.shaping[:, :, t.spirit_col] = frac
+
+        if it % 10 == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            sps = (steps_done - start_steps) / (time.perf_counter() - t0)
+            print(f"steps {steps_done:,}  {sps:,.0f} env-steps/s  "
+                  f"task {task.name}  loss {m['loss']:.4f}  "
+                  f"reward {m['reward_mean']:.4f}  entropy {m['entropy']:.3f}  "
+                  f"rollout {rollout_ms[-1]:.1f} ms  update {update_ms[-1]:.1f} ms",
+                  flush=True)
+
+        if steps_done - last_save >= args.save_every_steps:
+            last_save = steps_done
+            save_checkpoint(ckpt_path, params, opt_state, steps_done)
+            print(f"saved checkpoint at {steps_done:,} steps", flush=True)
+
+    seconds = time.perf_counter() - t0
+    if steps_done > last_save:
+        save_checkpoint(ckpt_path, params, opt_state, steps_done)
+        print(f"saved checkpoint at {steps_done:,} steps", flush=True)
+    trained = steps_done - start_steps
+    agents = args.num_agents_per_env
+    summary = {
+        "env": args.env, "num_envs": num_envs, "num_agents_per_env": agents,
+        "rollout": cfg.rollout, "hidden_size": cfg.hidden_size, "device": str(device),
+        "updates": it, "env_steps": trained, "steps_done": steps_done,
+        "setup_seconds": setup_seconds, "seconds": seconds,
+        # env steps count every env once per tick; samples every agent
+        "env_steps_per_s": trained / seconds if seconds > 0 else None,
+        "samples_per_s": trained * agents / seconds if seconds > 0 else None,
+        "rollout_ms": rollout_ms, "update_ms": update_ms,
+        "peak_device_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                                     if device.type == "cuda" else None),
+        "metrics": {k: float(v) for k, v in metrics.items()},
+    }
+    (out_dir / "train_summary.json").write_text(json.dumps(summary, indent=1))
+    print(f"done: {steps_done:,} env steps in {seconds:.1f}s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -49,13 +49,16 @@ def test_expected_modules_exist():
                  "scenarios.sokoban", "scenarios.rearrange", "scenarios.box_a_gone",
                  "scenarios.football", "scenarios.hex", "ops.pvs", "utils.refrng",
                  "utils.synthetic", "utils.perlin", "utils.refperlin", "utils.refsort",
-                 "utils.boxoban", "utils.native", "utils.hexmaze", "utils.pvs"):
+                 "utils.boxoban", "utils.native", "utils.hexmaze", "utils.pvs",
+                 "models.actor_critic", "rl.learner", "rl.train", "rl.enjoy",
+                 "rl.wrappers", "rl.checkpoint", "gym_env"):
         assert f"megaverse_tpu_torch.{want}" in names, want
     assert os.path.exists(os.path.join(ROOT, "megaverse_tpu_torch", "csrc", "render.cu"))
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "scripts/torch_dispatch_count.py",
-                                  "scripts/profile_torch_step.py"] + sorted(
+                                  "scripts/profile_torch_step.py",
+                                  "scripts/learner_grad_agreement.py"] + sorted(
     os.path.join(dp, f)[len(ROOT) + 1:]
     for dp, _, fs in os.walk(os.path.join(ROOT, "megaverse_tpu_torch"))
     for f in fs if f.endswith(".py")))
