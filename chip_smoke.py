@@ -29,7 +29,10 @@ megaverse_tpu_torch/csrc with nvcc, then
      plain version: the tolerance above. On the hex states also B2 with the
      PVS cluster mask as `render_tables` builds it by default: exactly equal
      to B1, within the tolerance of its plain version, and the mask must have
-     removed at least one cluster the frustum test kept;
+     removed at least one cluster the frustum test kept. The free camera
+     (`env.render_custom_camera`: B1 at any size) on the Collect state at
+     144 x 256, 100 x 200 and 720 x 1280 (FREE_CAMERA_SIZES) vs its plain
+     version: the tolerance above;
   3. drives the main path at full width through `VectorEnv`: reset +
      `step_many` chunks of 64 steps with a random action pool (numpy seed 0) +
      flush, for TowerBuilding 1024 x 1, Empty 4096 x 1, Collect 1024 x 1,
@@ -41,7 +44,11 @@ megaverse_tpu_torch/csrc with nvcc, then
      its run one chunk of 16 steps each with MEGAVERSE_RENDER_MODE=super
      (B5), plus MEGAVERSE_NO_SUPERCLUSTERS=1 (B4, per-tile lists), plus
      MEGAVERSE_NO_CLUSTER_SORT=1 (B3), and with MEGAVERSE_MERGE_TILES=1 (B6
-     over B2); and runs whose episodes are short enough for auto-resets
+     over B2), then with render size classes switched on (its state rendered
+     with and without them bit-equal, one chunk of 16 steps: B2 launches ==
+     class groups x 16) and the free camera at the three sizes through
+     `render_custom_camera` (3 B1 launches); and runs whose episodes are
+     short enough for auto-resets
      and layout refills to happen inside them
      (TowerBuilding 256 envs x 4 agents, Collect 256 x 2, Sokoban 256 x 2
      and HexExplore 256 x 2 with episodeLengthSec=4, Test 256 x 1). The hex
@@ -73,15 +80,26 @@ megaverse_tpu_torch/csrc with nvcc, then
      init, one per rollout step; finite loss; parameters moved), and
      `rl.enjoy.main` plays the checkpoint it wrote on the card for 20 steps
      (B2 launches == 21);
+  6. data parallelism (megaverse_tpu_torch.parallel): NCCL at world size
+     1, where one `ParallelLearner` update of step 4's float32 batch must be
+     bit-equal to the plain learner's (cuDNN deterministic); then two gloo
+     ranks spawned on the one card (NCCL refuses two ranks on one device),
+     each holding 256 of Collect 512 x 2's envs: their VectorEnv sampling
+     (reset + 3 steps), joined in rank order, must equal one process's bit
+     for bit, and after one training step of the trainer's task (rollout 32,
+     hidden 512, gradients averaged over the ranks) the replicas' parameters
+     must be bit-equal; each rank's B2 launches == 1 + 3 + 1 + 32;
   5. times every form and its plain version at the Collect 1024 x 1 shape
      (B6 over B2, B3, B4's per-tile lists and B5; B1, B2, B3 and B6 over B2
      also at the TowerBuilding 1024 x 1 shape; B2 at the end state of each
      run of Sokoban, Rearrange, BoxAGone, Football and the hex scenes, the
-     latter with and without the PVS mask) and prints the `kernels` line (times,
-     launches, largest error, roofline bound, clusters run per pixel).
+     latter with and without the PVS mask; B1 for the free camera at its three
+     sizes) and prints the `kernels` line (times, launches, largest error,
+     roofline bound, clusters run per pixel).
 
-`--phase kernels` stops after step 2, `--phase train` runs steps 1 and 4
-only (neither prints the result line).
+The phases run in the order 1, 2, 3, 4, 6, 5. `--phase kernels` stops after
+step 2, `--phase train` runs steps 1 and 4 only, `--phase parallel` steps 1
+and 6 only (none of them prints the result line).
 
 Any failed check raises and the script exits non-zero. The last line of the
 output is {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -142,6 +160,28 @@ CASE_FORM = {"b2": "render_b2", "b3": "render_b3", "b4_agent": "render_b4",
 
 # rollout, envs, agents, hidden of the learner's card-vs-CPU check
 UPDATE_SHAPE = (32, 8, 2, 512)
+
+# (height, width) of the free camera (env.render_custom_camera) through B1:
+# twice the agents' view, a size that is no multiple of the 8 x 128 tiles,
+# and 720p
+FREE_CAMERA_SIZES = ((144, 256), (100, 200), (720, 1280))
+
+# the parallel phase's two gloo ranks on the one card: Collect 512 envs x 2
+# agents (256 per rank), sampled for 3 steps, then one training step at the
+# training path's width (hidden 512, rollout 32)
+PARALLEL_SAMPLING = dict(label="collect_512x2", name="Collect", num_envs=512, num_agents=2,
+                         seed=42, steps=3)
+PARALLEL_TRAIN = dict(name="Collect", num_envs=512, num_agents=2, rollout=32,
+                      hidden_size=512, seed=42)
+PARALLEL_DEVICES = ["cuda:0", "cuda:0"]
+
+
+def free_camera_view(env):
+    """(eye, yaw, pitch) of an overview of env 0's scene: above and behind
+    the middle of its grid, looking down (scripts/record_episode_torch.py)."""
+    grid = env.scenario.cfg.grid
+    center = np.asarray(grid.origin) + np.asarray(grid.dims) * grid.voxel_size / 2
+    return (center[0], center[1] + np.max(grid.dims) * 0.7, center[2] + 6), 0.0, -1.1
 
 
 def update_check_inputs():
@@ -285,6 +325,8 @@ class Smoke:
         self.max_err = {name: 0 for name in RC.FORMS}
         self.launches = {name: 0 for name in RC.FORMS}
         self.obs_per_s = {}
+        # launches of the free camera, the class chunk and the parallel ranks
+        self.launches_by_part = {}
         self.saw_unpadded_b5 = False
         self.saw_short_table = False
 
@@ -460,6 +502,8 @@ class Smoke:
                          tabs["ui_indicators"], exact=name in NEW_SCENES)
             if name in HEX_SCENES:
                 self.pvs_check(f"{name}_{envs}x{agents}_after_20_steps", env)
+            if name == "Collect":
+                self.free_camera_compare(f"{name}_{envs}x{agents}_after_20_steps", env)
             if name == "Empty":
                 # short tables take per-tile cluster lists, not superclusters
                 short = render_tables(env.scenario, env.state, bucket=env._bucket,
@@ -471,6 +515,124 @@ class Smoke:
         if not (self.saw_short_table and self.saw_unpadded_b5):
             raise AssertionError("no case had a table shorter than 8 clusters / a "
                                  "B5 prim table that is not padded")
+
+    def free_camera_tables(self, env):
+        from megaverse_tpu_torch.env import custom_camera_tables
+        eye, yaw, pitch = free_camera_view(env)
+        return {(h, w): custom_camera_tables(env.scenario, env.state, eye, yaw, pitch,
+                                             width=w, height=h)
+                for h, w in FREE_CAMERA_SIZES}
+
+    def free_camera_compare(self, label, env) -> None:
+        """The free camera of env 0 through B1 at every size of
+        FREE_CAMERA_SIZES against its plain version: at most 1 per colour
+        channel on fewer than 1e-4 of the pixels."""
+        RC = self.RC
+        report = {}
+        for (h, w), tabs in self.free_camera_tables(env).items():
+            img = RC.render_packed(**tabs)
+            plain = RC.render_packed_plain(**tabs)
+            torch.cuda.synchronize()
+            worst, frac = channel_diff(img, plain)
+            self.max_err["render_b1"] = max(self.max_err["render_b1"], worst)
+            if tuple(img.shape) != (1, 1, h, w) or not (worst <= 1 and frac < TOL_FRACTION):
+                raise AssertionError(f"{label}: free camera {h}x{w} {tuple(img.shape)} "
+                                     f"disagrees with its plain version (max {worst}, "
+                                     f"fraction {frac})")
+            if torch.unique(img).numel() < 8:
+                raise AssertionError(f"{label}: free camera {h}x{w} is (nearly) constant")
+            report[f"{h}x{w}"] = {"max_channel_diff": worst, "fraction_differing": frac,
+                                  "rows": int(tabs["prims"].shape[1]),
+                                  "distinct_colours": int(torch.unique(img).numel())}
+        emit({"phase": "free_camera_vs_plain", "case": label, "form": "render_b1",
+              "plain_tolerance": "1 level on < 1e-4", "sizes": report})
+
+    def free_camera_main(self, label, env) -> None:
+        """`render_custom_camera` (the user's entry point) of env 0 at every
+        size of FREE_CAMERA_SIZES, launch counts zeroed before and read after:
+        one B1 launch per image and no other form."""
+        from megaverse_tpu_torch.env import render_custom_camera
+        RC = self.RC
+        eye, yaw, pitch = free_camera_view(env)
+        torch.cuda.synchronize()
+        RC.reset_launch_counts()
+        t0 = time.perf_counter()
+        images = [render_custom_camera(env.scenario, env.state, eye, yaw, pitch,
+                                       width=w, height=h) for h, w in FREE_CAMERA_SIZES]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(RC.LAUNCHES)
+        for (h, w), img in zip(FREE_CAMERA_SIZES, images):
+            if img.dtype != torch.uint8 or tuple(img.shape) != (h, w, 3) \
+                    or img.device != self.dev or torch.unique(img).numel() < 8:
+                raise AssertionError(f"{label}: free camera {h}x{w}: {img.dtype} "
+                                     f"{tuple(img.shape)} on {img.device}")
+        want = len(FREE_CAMERA_SIZES)
+        for k, n in counts.items():
+            if n != (want if k == "render_b1" else 0):
+                raise AssertionError(f"{label}: launches {counts}, expected {want} of "
+                                     "render_b1 and no other")
+            self.launches[k] += n
+        self.launches_by_part["free_camera"] = counts["render_b1"]
+        emit({"phase": "main_path", "run": label, "scenario": env.scenario.name,
+              "sizes": [list(s) for s in FREE_CAMERA_SIZES], "launches": counts,
+              "seconds": seconds, "gpu": self.smi})
+
+    def classes_main(self, label, env, chunk=16) -> None:
+        """Render size classes switched on for a driven env (no new reset):
+        its state rendered with and without classes must be bit-equal; one
+        timed chunk with classes on must launch B2 once per class group and
+        step; the render's and the B2 kernels' milliseconds with classes on
+        and off."""
+        from megaverse_tpu_torch.env import render_tables, render_view, render_view_index
+        RC = self.RC
+        env.flush()
+        plain = env.render()
+        render_off = time_cuda(env.render, 5)
+        tabs_off = render_tables(env.scenario, env.state, bucket=env._bucket,
+                                 mode=env.render_mode)
+        b2_off = time_cuda(lambda: RC.render_packed(height=72, width=128, **tabs_off), 10)
+        env.set_render_classes(True)
+        groups = [int(idx.shape[0]) for _, idx in env._cls_groups]
+        classed = env.render()
+        torch.cuda.synchronize()
+        if not torch.equal(classed, plain):
+            raise AssertionError(f"{label}: the classed render differs from the unclassed "
+                                 f"one on {int((classed != plain).sum().item())} pixels")
+        render_on = time_cuda(env.render, 5)
+        # the kernel alone, group by group, at its class's table size
+        view = render_view(env.state)
+        b2_on = []
+        for k, idx in env._cls_groups:
+            box_rows, seg_rows = env._class_ladder[k]
+            seg = seg_rows if env.scenario.cfg.prop_segments else seg_rows[0]
+            tabs = render_tables(env.scenario, render_view_index(view, idx),
+                                 bucket=(box_rows, seg), mode=env.render_mode)
+            b2_on.append(time_cuda(lambda t=tabs: RC.render_packed(height=72, width=128, **t),
+                                   10))
+        pool = self.action_pool(env.num_envs, env.num_agents_per_env)
+        torch.cuda.synchronize()
+        RC.reset_launch_counts()
+        t0 = time.perf_counter()
+        obs, _, csums = env.step_many(pool, chunk)
+        _ = int(csums[-1].item())
+        seconds = time.perf_counter() - t0
+        counts = dict(RC.LAUNCHES)
+        env.flush()
+        torch.cuda.synchronize()
+        env.set_render_classes(False)
+        rate = env.num_envs * env.num_agents_per_env * chunk / seconds
+        emit({"phase": "main_path", "run": label, "scenario": env.scenario.name,
+              "envs": env.num_envs, "agents": env.num_agents_per_env, "steps": chunk,
+              "launches": counts, "class_groups": groups, "obs_per_sec": rate,
+              "ms_per_step": 1e3 * seconds / chunk, "render_ms_classes_off": render_off,
+              "render_ms_classes_on": render_on, "b2_ms_classes_off": b2_off,
+              "b2_ms_classes_on": sum(b2_on), "b2_ms_per_group": b2_on,
+              "classed_equals_unclassed": True, "gpu": self.smi,
+              "note": "first reading, not a claim; one chunk"})
+        self.check_run(label, env, counts, "render_b2", len(groups) * chunk, obs)
+        self.launches_by_part["classes"] = counts["render_b2"]
+        self.obs_per_s[label] = rate
 
     # ------------------------------------------------------------- phase 3
     @staticmethod
@@ -611,6 +773,9 @@ class Smoke:
                     self.drive_mode("collect_1024x1_in_order", "Collect", collect, "render_b3")
         with ModeEnv(MEGAVERSE_MERGE_TILES="1"):
             self.drive_mode("collect_1024x1_merged", "Collect", collect, "render_b6")
+        # render size classes and the free camera on the same env
+        self.classes_main("collect_1024x1_classes", collect)
+        self.free_camera_main("collect_1024x1_free_camera", collect)
         hard = self.drive("obstacleshard_1024x1", "ObstaclesHard", 1024, 1, 64, 3,
                           keep=True)
         # Four agents per env (the per-agent passes of the stacking component).
@@ -809,6 +974,96 @@ class Smoke:
                                          "of render_b2 and no other")
                 self.launches[k] += n
 
+    # ------------------------------------------------------------- phase 6
+    def parallel_world_one(self) -> None:
+        """NCCL at world size 1 (the MEGAVERSE_COORDINATOR variables through
+        `parallel.maybe_initialize_distributed`): one `ParallelLearner` update
+        of the learner check's batch (float32, hidden 512) is bit-equal to
+        the plain learner's update, with cuDNN held deterministic."""
+        import tempfile
+
+        from megaverse_tpu_torch.parallel import (ParallelLearner, maybe_initialize_distributed,
+                                                  shutdown_distributed, world)
+        inputs = update_check_inputs()
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            with tempfile.TemporaryDirectory() as tmp, ModeEnv(
+                    MEGAVERSE_COORDINATOR=f"file://{os.path.join(tmp, 'init')}",
+                    MEGAVERSE_NUM_PROCESSES="1", MEGAVERSE_PROCESS_ID="0"):
+                if not maybe_initialize_distributed(device=self.dev):
+                    raise AssertionError("parallel: no process group was made")
+                try:
+                    backend = torch.distributed.get_backend()
+                    learner, ls, batch = update_check_setup(self.dev, torch.float32, inputs)
+                    plain = [learner._update_from_batch(ls, batch)[0].params for _ in range(2)]
+                    t0 = time.perf_counter()
+                    par = ParallelLearner(learner)._update_from_batch(ls, batch)[0].params
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t0
+                    ranks = world()
+                finally:
+                    shutdown_distributed()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        same = lambda a, b: all(torch.equal(a[k], b[k]) for k in a)
+        emit({"phase": "parallel_world_one", "backend": backend, "rank_world": list(ranks),
+              "plain_repeats_equal": same(plain[0], plain[1]),
+              "parallel_equals_plain": same(par, plain[0]), "update_seconds": seconds,
+              "gpu": self.smi})
+        if backend != "nccl" or not same(par, plain[0]):
+            raise AssertionError(f"parallel: the {backend} world-size-1 update differs "
+                                 "from the plain learner's")
+
+    def parallel_two_ranks(self) -> None:
+        """Two gloo ranks on the one card (`entry.run_ranks`; NCCL refuses
+        two ranks on one device): their VectorEnv sampling of Collect 512 x 2
+        (256 envs each), joined in rank order, equals one process's bit for
+        bit; after one training step of the trainer's task (rollout 32,
+        hidden 512, gradients averaged over the ranks) the two replicas'
+        parameters are bit-equal. The line also gives each rank's all-reduce
+        of the gradients' size, timed on its own after the update."""
+        from megaverse_tpu_torch import entry
+        t0 = time.perf_counter()
+        outputs = entry.run_ranks(dict(devices=PARALLEL_DEVICES, backend="gloo",
+                                       sampling=[PARALLEL_SAMPLING], train=PARALLEL_TRAIN))
+        ranks_seconds = time.perf_counter() - t0
+        label = PARALLEL_SAMPLING["label"]
+        single = entry.sample(PARALLEL_SAMPLING, self.dev)
+        for key in ("obs", "reward", "done"):
+            if not torch.equal(entry.gathered(outputs, label, key), single[key]):
+                raise AssertionError(f"parallel: the two ranks' {key} differ from one "
+                                     "process's")
+        if not entry.replicas_equal(outputs):
+            raise AssertionError("parallel: the replicas' parameters differ after the update")
+        # per rank: reset + steps of the sampling, the task's first render +
+        # one launch per rollout step
+        want = 1 + PARALLEL_SAMPLING["steps"] + 1 + PARALLEL_TRAIN["rollout"]
+        launches = 0
+        for r, o in enumerate(outputs):
+            counts = {k: o[label]["launches"][k] + o["train"]["launches"][k] for k in self.launches}
+            if any(n != (want if k == "render_b2" else 0) for k, n in counts.items()):
+                raise AssertionError(f"parallel: rank {r} launches {counts}, expected {want} "
+                                     "of render_b2 and no other")
+            launches += counts["render_b2"]
+        self.launches["render_b2"] += launches
+        self.launches_by_part["parallel_ranks"] = launches
+        train = [o["train"] for o in outputs]
+        slowest = max(t["rollout_ms"] + t["update_ms"] for t in train) / 1e3
+        env_steps = PARALLEL_TRAIN["num_envs"] * PARALLEL_TRAIN["rollout"]
+        emit({"phase": "parallel_two_ranks", "backend": "gloo", "devices": PARALLEL_DEVICES,
+              "envs_per_rank": [t["envs"] for t in train],
+              "sampling": {"frames": list(single["obs"].shape), "equal": True},
+              "replicas_equal": True, "rollout_ms": [t["rollout_ms"] for t in train],
+              "update_ms": [t["update_ms"] for t in train],
+              "allreduce_ms": [t["allreduce_ms"] for t in train],
+              "setup_seconds": [t["setup_s"] for t in train],
+              "env_steps_per_s": env_steps / slowest,
+              "samples_per_s": env_steps * PARALLEL_TRAIN["num_agents"] / slowest,
+              "metrics": train[0]["metrics"], "launches_render_b2": launches,
+              "ranks_seconds": ranks_seconds, "gpu": self.smi,
+              "note": "first reading, not a claim; two ranks share one card"})
+
     # ------------------------------------------------------------- phase 5
     def time_forms(self, env, cases_wanted):
         """Kernel and plain-version milliseconds, bytes, operations and bound
@@ -888,7 +1143,31 @@ class Smoke:
                 "gpu": self.smi}
         return out, meta
 
+    def time_free_camera(self, env) -> dict:
+        """B1's and its plain version's milliseconds and bound for the free
+        camera at every size of FREE_CAMERA_SIZES, at the state `env` ended on."""
+        RC = self.RC
+        out = {}
+        for (h, w), tabs in self.free_camera_tables(env).items():
+            prims = tabs["prims"]
+            types = prims[:, :, 0]
+            pixels = h * w
+            ops = pixels * (int((types == 0).sum()) * OPS_ROW_AABB
+                            + int((types > 0).sum()) * OPS_ROW_OTHER
+                            + int((types < 0).sum()) * 2 + OPS_PIXEL_FIXED)
+            nb = (tabs["cams"].numel() + prims.numel()) * 4 + pixels * 4
+            tb, to = 1e3 * nb / HBM_BYTES_PER_S, 1e3 * ops / F32_FLOP_PER_S
+            out[f"{h}x{w}"] = dict(
+                ms=time_cuda(lambda t=tabs: RC.render_packed(**t), 20),
+                plain_ms=time_cuda(lambda t=tabs: RC.render_packed_plain(**t), 1, warm=False),
+                bound_ms=max(tb, to), bound_by="bytes" if tb >= to else "operations",
+                rows=int(prims.shape[1]))
+        return out
+
     def kernels_line(self, tower, collect, new_envs) -> None:
+        free_camera = self.time_free_camera(collect)
+        emit({"phase": "kernel_times", "scenario": "Collect", "free_camera": free_camera,
+              "gpu": self.smi})
         all_cases = ("b1", "b2", "b3", "b4_agent", "b4_agent_dist", "b4_tile",
                      "b4_shuffled", "b5", "b6_over_b2", "b6_over_b3", "b6_over_b4_tile",
                      "b6_over_b5")
@@ -923,7 +1202,16 @@ class Smoke:
                 t = at_tower[case]
                 row.update(ms_towerbuilding=t["ms"], plain_ms_towerbuilding=t["plain_ms"],
                            bound_ms_towerbuilding=t["bound_ms"])
+            if name == "render_b1":
+                # the free camera: one B1 launch per image, any size
+                row["launches_free_camera"] = self.launches_by_part.get("free_camera", 0)
+                for size, t in free_camera.items():
+                    row.update({f"ms_free_camera_{size}": t["ms"],
+                                f"plain_ms_free_camera_{size}": t["plain_ms"],
+                                f"bound_ms_free_camera_{size}": t["bound_ms"]})
             if name == "render_b2":
+                row["launches_classes"] = self.launches_by_part.get("classes", 0)
+                row["launches_parallel_ranks"] = self.launches_by_part.get("parallel_ranks", 0)
                 # at the hex scenes the main path's B2 runs with the PVS mask
                 for scen, cases in at_new.items():
                     key = scen.lower()
@@ -948,10 +1236,12 @@ class Smoke:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--phase", default="all", choices=["all", "kernels", "train"],
+    ap.add_argument("--phase", default="all",
+                    choices=["all", "kernels", "train", "parallel"],
                     help="'kernels' stops after the kernel-vs-plain comparison, "
-                         "'train' runs only the training path (neither prints "
-                         "the result line)")
+                         "'train' runs only the training path, 'parallel' only "
+                         "the data-parallel checks (none of them prints the "
+                         "result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check only runs on the GPU",
@@ -967,12 +1257,18 @@ def main() -> int:
         smoke.train_update_check()
         smoke.train_path()
         return 0
+    if args.phase == "parallel":
+        smoke.parallel_world_one()
+        smoke.parallel_two_ranks()
+        return 0
     smoke.kernels_vs_plain()
     if args.phase == "kernels":
         return 0
     tower, collect, new_envs = smoke.main_path()
     smoke.train_update_check()
     smoke.train_path()
+    smoke.parallel_world_one()
+    smoke.parallel_two_ranks()
     smoke.kernels_line(tower, collect, new_envs)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smoke.smi, flush=True)

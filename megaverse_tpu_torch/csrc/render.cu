@@ -30,7 +30,10 @@
 //       sub-blocks, staging what the frame shares once (B2: the clusters its
 //       tiles can visit; B3: the env's boxes; B5: the env's cluster and
 //       supercluster boxes); idle blocks join the frames still running.
-// All write packed RGB int32 [B, A, H, 128].
+// All write packed RGB int32 [B, A, H, W]: W = 128 and H a multiple of 8
+// for B2-B5, whose cull tables are per 8x128 tile; B1 needs no table and takes
+// any H x W (tiles across and down, the ragged edge traced and not stored),
+// which the free camera (env.render_custom_camera) renders through.
 //
 // What bounds it on this card: arithmetic, not memory. A frame reads a few KB
 // of tables per env and writes 4 bytes per pixel, while every visited table
@@ -590,13 +593,17 @@ __device__ __forceinline__ Cam load_cam(const float* __restrict__ cam) {
   return k;
 }
 
-__device__ __forceinline__ Pixel make_pixel(int b, int a, int y, int height) {
+// Pixel column x0 + (thread's lane in the row), row y of a height x width
+// view; a pixel past the view's right or bottom edge is traced (every thread
+// takes part in the block's barriers) but never stored (`epilogue`).
+__device__ __forceinline__ Pixel make_pixel(int b, int a, int x0, int y, int height,
+                                            int width) {
   Pixel px;
   px.b = b;
   px.a = a;
-  px.x = threadIdx.x & (TILE_W - 1);
+  px.x = x0 + (threadIdx.x & (TILE_W - 1));
   px.y = y;
-  px.uu = ((float)px.x + 0.5f) / (float)TILE_W * 2.0f - 1.0f;
+  px.uu = ((float)px.x + 0.5f) / (float)width * 2.0f - 1.0f;
   px.vv = 1.0f - ((float)px.y + 0.5f) / (float)height * 2.0f;
   return px;
 }
@@ -647,12 +654,14 @@ __device__ __forceinline__ int to8(float c) {
 }
 
 // Decode the normal, shade (Blinn-Phong, light (0,4,2) x 0.6667, shininess
-// 300), composite the HUD, pack and store.
+// 300), composite the HUD, pack and store; with ANY_SIZE (B1) a pixel past
+// the view's right or bottom edge is not stored.
+template <bool ANY_SIZE>
 __device__ __forceinline__ void epilogue(const Pixel& px, const Ray& ray,
                                          const Carry& c,
                                          const float* __restrict__ cam,
                                          const float* __restrict__ kc,
-                                         int ui_indicators, int height,
+                                         int ui_indicators, int height, int width,
                                          int num_agents, int* __restrict__ out) {
   float nx = c.nx, ny = c.ny, nz = c.nz;
   if (c.code < CODE_DIRECT)
@@ -718,7 +727,8 @@ __device__ __forceinline__ void epilogue(const Pixel& px, const Ray& ray,
     }
   }
   int packed = (to8(r) << 16) | (to8(g) << 8) | to8(b);
-  size_t o = (((size_t)px.b * num_agents + px.a) * height + px.y) * TILE_W + px.x;
+  if (ANY_SIZE && (px.x >= width || px.y >= height)) return;
+  size_t o = (((size_t)px.b * num_agents + px.a) * height + px.y) * width + px.x;
   out[o] = packed;
 }
 
@@ -798,11 +808,12 @@ struct Args {
   const float* __restrict__ scdist;     // [B, A, T, S]          (B2)
   const float* __restrict__ cdist;      // [B, A, G]             (B2)
   const float* __restrict__ kc;         // render constants
-  int* __restrict__ out;                // [B, A, H, 128]
+  int* __restrict__ out;                // [B, A, H, W]
   int* __restrict__ visits;             // [B, A, H, 2] or null
   int* __restrict__ work;               // [B * A + 1] zeros: B6's work queue
   int num_frames;                       // B * A
   int num_agents, height, num_prims, num_clusters, num_words;
+  int width;                            // W: 128 for B2-B5, any for B1
   int list_len;                         // L: entries per list of `order`
   int per_tile;                         // lists per (env, agent, tile)
   int ui_indicators;
@@ -1515,14 +1526,34 @@ __host__ __device__ constexpr int subs_per_tile() {
   return TILE_H / (LANES * P);
 }
 
-// Sub-block `sub` (tile-major) of frame `frame` (env * A + agent): its rays,
-// the form's traversal, the epilogue.
+// Tiles of 8 x 128 pixels down and across a frame: ceil(H / 8) x ceil(W / 128).
+// B2-B5 take H % 8 == 0 and W == 128 (their cull tables are per tile of a
+// 128-wide view), so a frame is one column of tiles there, and their code
+// keeps the width a constant (`any_size<FORM>`): only B1 pays for the
+// column offset and the edge test.
+__host__ __device__ inline int tiles_down(const Args& A) { return (A.height + TILE_H - 1) / TILE_H; }
+__host__ __device__ inline int tiles_across(const Args& A) { return (A.width + TILE_W - 1) / TILE_W; }
+
+template <int FORM>
+__host__ __device__ constexpr bool any_size() { return FORM == FORM_B1; }
+
+template <int P>
+__host__ __device__ inline int subs_per_frame(const Args& A) {
+  return tiles_down(A) * tiles_across(A) * subs_per_tile<P>();
+}
+
+// Sub-block `sub` (tile-major: tile rows, then the tiles across one) of frame
+// `frame` (env * A + agent): its rays, the form's traversal, the epilogue.
 template <int FORM, bool MERGED>
 __device__ __forceinline__ void render_sub(const Args& A, Stage& s, int frame, int sub) {
   constexpr int P = pixels_per_thread<FORM>();
   constexpr int SUBS = subs_per_tile<P>();
-  const int tiles = A.height / TILE_H;
-  const int tile = sub / SUBS;
+  constexpr bool ANY_SIZE = any_size<FORM>();
+  const int tiles = tiles_down(A);
+  const int across = ANY_SIZE ? tiles_across(A) : 1;
+  const int width = ANY_SIZE ? A.width : TILE_W;
+  const int tile = sub / SUBS / across;
+  const int x0 = ANY_SIZE ? (sub / SUBS % across) * TILE_W : 0;
   const int part = sub % SUBS;
   const int a = frame % A.num_agents;
   const int b = frame / A.num_agents;
@@ -1541,7 +1572,7 @@ __device__ __forceinline__ void render_sub(const Args& A, Stage& s, int frame, i
   Carry c[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
-    px[p] = make_pixel(b, a, y0 + LANES * p, A.height);
+    px[p] = make_pixel(b, a, x0, y0 + LANES * p, A.height, width);
     ray[p] = make_ray(px[p], camk, A.kc);
     c[p].idx = A.num_prims;
     c[p].nx = c[p].ny = c[p].nz = 0.0f;
@@ -1556,10 +1587,13 @@ __device__ __forceinline__ void render_sub(const Args& A, Stage& s, int frame, i
 
 #pragma unroll
   for (int p = 0; p < P; ++p)
-    epilogue(px[p], ray[p], c[p], cam, A.kc, A.ui_indicators, A.height, A.num_agents, A.out);
-  // Optional measurement output: per pixel row, the clusters whose rows ran,
-  // summed over the row's VISIT_SEGMENTS segments of 32 pixels (one warp's
-  // columns). B4 and B5 decide per warp, the other forms per sub-block.
+    epilogue<ANY_SIZE>(px[p], ray[p], c[p], cam, A.kc, A.ui_indicators, A.height, width,
+                       A.num_agents, A.out);
+  // Optional measurement output (zeroed by the caller): per pixel row, the
+  // clusters whose rows ran, summed over the row's segments of 32 pixels (one
+  // warp's columns; VISIT_SEGMENTS per tile). B4 and B5 decide per warp, the
+  // other forms per sub-block; a row wider than one tile (B1 at any size)
+  // sums its tiles, hence the atomics there too.
   if (A.visits != nullptr) {
     if constexpr (FORM == FORM_B4 || FORM == FORM_B5) {
       if ((threadIdx.x & 31) == 0) {
@@ -1571,10 +1605,10 @@ __device__ __forceinline__ void render_sub(const Args& A, Stage& s, int frame, i
       }
     } else if (threadIdx.x == 0) {
       const int ytop = tile * TILE_H + part * LANES * P;
-      for (int r = 0; r < LANES * P; ++r) {
+      for (int r = 0; r < LANES * P && (!ANY_SIZE || ytop + r < A.height); ++r) {
         const size_t o = 2 * (w.ba * A.height + ytop + r);
-        A.visits[o + 0] = w.ran_aabb * VISIT_SEGMENTS;
-        A.visits[o + 1] = w.ran_other * VISIT_SEGMENTS;
+        atomicAdd(A.visits + o + 0, w.ran_aabb * VISIT_SEGMENTS);
+        atomicAdd(A.visits + o + 1, w.ran_other * VISIT_SEGMENTS);
       }
     }
   }
@@ -1619,7 +1653,7 @@ render_kernel(const __grid_constant__ Args A) {
   __shared__ unsigned votes[2 * NWARPS];
   __shared__ int bcast;
   __shared__ __align__(8) uint64_t bars[NBARS];
-  const int per_frame = (A.height / TILE_H) * subs_per_tile<P>();
+  const int per_frame = subs_per_frame<P>(A);
   Stage s{dyn, bars, red, cnt, votes, &bcast, 0u, -1, 0};
   if (threadIdx.x == 0) {
     for (int i = 0; i < NBARS; ++i) bar_init(bars + i);
@@ -1681,7 +1715,7 @@ int launch(const Args& A, int merged, size_t smem, cudaStream_t stream) {
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  int grid = A.num_frames * (A.height / TILE_H) * subs_per_tile<P>();
+  int grid = A.num_frames * subs_per_frame<P>(A);
   if (merged) {
     // as many blocks as the card holds at once, at most one per frame
     int dev = 0, sms = 0, per_sm = 0;
@@ -1703,7 +1737,9 @@ extern "C" {
 // Launch form `form` (1..5 = B1..B5) of the renderer, tiled or (merged != 0)
 // as form B6. Every pointer is a device pointer; those a form does not read
 // may be null, and so may `dist` (B4 without early exit) and `visits`.
-// `work` (merged launches only) holds B * A + 1 zeros. Returns
+// `work` (merged launches only) holds B * A + 1 zeros. The output is
+// [B, A, height, width]: B1 takes any size, B2-B5 need height % 8 == 0 and
+// width == 128 (the wrapper checks). Returns
 // cudaGetLastError() after the launch (0 = accepted, -1 = unknown form); the
 // launch runs asynchronously on `stream`.
 int mv_render(int form, int merged, const float* cams, const float* prims,
@@ -1711,7 +1747,7 @@ int mv_render(int form, int merged, const float* cams, const float* prims,
               const float* dist, const int* sclist, const int* clbits,
               const float* scdist, const float* cdist, const float* kc,
               int* out, int* visits, int* work, int batch, int num_agents, int height,
-              int num_prims, int num_clusters, int num_words, int list_len,
+              int width, int num_prims, int num_clusters, int num_words, int list_len,
               int per_tile, int ui_indicators, cudaStream_t stream) {
   Args A;
   A.cams = cams;
@@ -1731,6 +1767,7 @@ int mv_render(int form, int merged, const float* cams, const float* prims,
   A.num_frames = batch * num_agents;
   A.num_agents = num_agents;
   A.height = height;
+  A.width = width;
   A.num_prims = num_prims;
   A.num_clusters = num_clusters;
   A.num_words = num_words;

@@ -178,7 +178,8 @@ def apply_deferred_resets(state, next_scenes, done, max_slots: int = 32,
 
 
 class RenderView(NamedTuple):
-    """The subset of EnvState the batched renderer reads."""
+    """The subset of EnvState the batched renderer reads (`scen`: for a
+    scenario's render row mask, `Scenario.render_row_mask`)."""
     box_lo: torch.Tensor
     box_hi: torch.Tensor
     box_color: torch.Tensor
@@ -187,6 +188,7 @@ class RenderView(NamedTuple):
     episode_sec: torch.Tensor
     episode_len_sec: torch.Tensor
     last_reward: torch.Tensor
+    scen: object = None
 
     def replace(self, **kw) -> "RenderView":
         return self._replace(**kw)
@@ -197,8 +199,13 @@ def render_view(states: EnvState) -> RenderView:
         box_lo=states.box_lo, box_hi=states.box_hi, box_color=states.box_color,
         props=states.props, agents=states.agents,
         episode_sec=states.episode_sec, episode_len_sec=states.episode_len_sec,
-        last_reward=states.last_reward,
+        last_reward=states.last_reward, scen=states.scen,
     )
+
+
+def render_view_index(view: RenderView, idx: torch.Tensor) -> RenderView:
+    """The envs `idx` (rows of the leading axis, repeats allowed) of a view."""
+    return RenderView(*(tree_index(x, idx) for x in view))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -338,6 +345,49 @@ def render_tables(scenario: Scenario, states, bucket: Optional[tuple] = None,
         order, dist = RC.frustum_cull(cams, sclusters, height, width)
         tables.update(order=order, dist=dist, sclusters=sclusters.contiguous())
     return dict(tables, prims=prims.contiguous(), clusters=clusters.contiguous())
+
+
+def custom_camera_tables(scenario: Scenario, state, eye, yaw: float, pitch: float,
+                         width: int = 2 * C.OBS_WIDTH, height: int = 2 * C.OBS_HEIGHT,
+                         env: int = 0) -> dict:
+    """The render kernel's inputs for `render_custom_camera` (cams [1, 1, 8],
+    prims [1, M, 12], height, width), as keyword arguments of
+    `raycast_cuda.render_packed`."""
+    cfg = dataclasses.replace(scenario.cfg, obs_width=width, obs_height=height)
+    one = lambda x: x[env:env + 1]
+    dev = state.box_lo.device
+    f32 = torch.float32
+    prims = RC.build_prim_table(cfg, one(state.box_lo), one(state.box_hi),
+                                one(state.box_color), tree_map(one, state.props),
+                                tree_map(one, state.agents))
+    eye = torch.as_tensor(eye, dtype=f32, device=dev).reshape(1, 1, 3)
+    offset = torch.tensor([0.0, C.AGENT_BODY_OFFSET_Y + C.AGENT_CAMERA_OFFSET_Y, 0.0],
+                          dtype=f32, device=dev)
+    cam_agent = AgentState.create(1, 1, device=dev).replace(
+        pos=eye - offset,
+        yaw=torch.full((1, 1), float(yaw), dtype=f32, device=dev),
+        pitch=torch.full((1, 1), float(pitch), dtype=f32, device=dev))
+    cams = RC.build_cams(cfg, cam_agent, torch.ones((1,), dtype=f32, device=dev))
+    return dict(cams=cams, prims=prims.contiguous(), height=height, width=width)
+
+
+def render_custom_camera(scenario: Scenario, state, eye, yaw: float, pitch: float,
+                         width: int = 2 * C.OBS_WIDTH, height: int = 2 * C.OBS_HEIGHT,
+                         env: int = 0) -> torch.Tensor:
+    """Free-camera / hires render of ONE env -> uint8 [height, width, 3] on
+    the state's device (counterpart of megaverse_tpu/env.py
+    render_custom_camera; the reference's overview camera and hires chained
+    renderer, render_utils.cpp Overview, megaverse.cpp:154-201): the same
+    scene content, any camera, any resolution. `state` is a batched EnvState
+    and `env` the index of the env to draw.
+
+    The table keeps the agents' rows (the camera is outside them), the HUD
+    time bar is full (remaining 1.0) and no reward indicator is drawn, as in
+    the reference. On a CUDA device the image comes from the render kernel's
+    unculled form B1 (no cull tables; any H x W); on the CPU from its plain
+    version."""
+    tables = custom_camera_tables(scenario, state, eye, yaw, pitch, width, height, env)
+    return RC.unpack_rgb(RC.render_packed(**tables))[0, 0]
 
 
 def render_batch(scenario: Scenario, states, fmt: str = "rgb",

@@ -174,7 +174,7 @@ def load_library():
         lib = ctypes.CDLL(str(build_library()))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mv_render.restype = i
-        lib.mv_render.argtypes = [i, i] + [p] * 14 + [i] * 9 + [p]
+        lib.mv_render.argtypes = [i, i] + [p] * 14 + [i] * 10 + [p]
         lib.mv_render_const_count.restype = i
         lib.mv_render_const_count.argtypes = []
         if lib.mv_render_const_count() != R.K_COUNT:
@@ -232,7 +232,8 @@ def render_packed(cams: torch.Tensor, prims: torch.Tensor, height: int, width: i
     """cams [B, A, 8] f32, prims [B, M, 12] f32 -> packed RGB int32 [B,A,H,W].
 
     Every form gives the same image; the tables passed pick the traversal
-    (T = H/8, G clusters, S = G/4 superclusters):
+    (T = H/8, G clusters, S = G/4 superclusters). The culled forms and B6
+    take H % 8 == 0 and W == 128; tiled B1 takes any H x W:
       B1  no cull tables: every row, in table order;
       B2  `clusters` [B,G,8] + `sclist` int32 [B,A,T,S], `clbits` int32
           [B,A,T,ceil(G/32)], `scdist` f32 [B,A,T,S], `cdist` f32 [B,A,G]
@@ -257,18 +258,21 @@ def render_packed(cams: torch.Tensor, prims: torch.Tensor, height: int, width: i
     take the plain PyTorch version. Measurement only, on CUDA: `visits`, an
     int32 tensor from `new_visits` that receives, per pixel row, the number
     of all-AABB and of other clusters whose rows ran for it (forms B2-B5),
-    summed over the row's VISIT_SEGMENTS segments of 32 pixels (B4 and B5
-    run a cluster per warp, the other forms per block of pixel rows):
-    `visits.sum() / VISIT_SEGMENTS` clusters ran per pixel row."""
+    summed over the row's segments of 32 pixels, VISIT_SEGMENTS per tile
+    across (B4 and B5 run a cluster per warp, the other forms per block of
+    pixel rows): at width 128, `visits.sum() / VISIT_SEGMENTS` clusters ran
+    per pixel row."""
     tables = dict(clusters=clusters, order=order, dist=dist, sclusters=sclusters,
                   merge_tiles=merge_tiles, sclist=sclist, clbits=clbits,
                   scdist=scdist, cdist=cdist)
     if cams.device.type != "cuda":
         return render_packed_plain(cams, prims, height, width,
                                    ui_indicators=ui_indicators, **tables)
-    if height % TILE_H != 0 or width != TILE_W:
-        raise ValueError(f"render_packed needs H % {TILE_H} == 0 and W == {TILE_W}, "
-                         f"got {(height, width)}")
+    form, counter = select_form(clusters, order, dist, sclusters, sclist, merge_tiles)
+    if height < 1 or width < 1 or (
+            (form != 1 or merge_tiles) and (height % TILE_H != 0 or width != TILE_W)):
+        raise ValueError(f"render_packed needs H % {TILE_H} == 0 and W == {TILE_W} "
+                         f"(any H x W for the tiled unculled form), got {(height, width)}")
     dev = cams.device
     bsz, num_agents = cams.shape[0], cams.shape[1]
     num_prims = prims.shape[1]
@@ -276,7 +280,6 @@ def render_packed(cams: torch.Tensor, prims: torch.Tensor, height: int, width: i
     f32, i32 = torch.float32, torch.int32
     _check("cams", cams, f32, (bsz, num_agents, 8), dev)
     _check("prims", prims, f32, (bsz, num_prims, ROW_W), dev)
-    form, counter = select_form(clusters, order, dist, sclusters, sclist, merge_tiles)
     g = words = list_len = per_tile = 0
     if form >= 2:
         g = clusters.shape[1]
@@ -340,7 +343,7 @@ def render_packed(cams: torch.Tensor, prims: torch.Tensor, height: int, width: i
             form, 1 if merge_tiles else 0, ptr(cams), ptr(prims), ptr(clusters),
             ptr(sclusters), ptr(order), ptr(dist), ptr(sclist), ptr(clbits),
             ptr(scdist), ptr(cdist), ptr(kc), ptr(out), ptr(visits), ptr(work), bsz,
-            num_agents, height, num_prims, g, words, list_len, per_tile,
+            num_agents, height, width, num_prims, g, words, list_len, per_tile,
             1 if ui_indicators else 0, stream)
     if err != 0:
         raise RuntimeError(f"render kernel launch failed: CUDA error {err}")

@@ -193,10 +193,12 @@ class Learner:
     def init(self, seed: int, env_state: Optional[EnvState], obs: torch.Tensor
              ) -> LearnerState:
         """Fresh parameters (flax's initializers, drawn from `seed`), zero
-        carry, Adam state and the learner's generator."""
+        carry (one per env of `obs`: all `num_envs`, or one rank's share of
+        them under parallel.ParallelLearner), Adam state and the learner's
+        generator."""
         self.model.reset_parameters(torch.Generator(self.device).manual_seed(seed))
         params = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
-        b, a = self.num_envs, self.scenario.cfg.num_agents
+        b, a = obs.shape[0], self.scenario.cfg.num_agents
         carry = self.model.initial_carry((b, a), self.device)
         rng = torch.Generator(self.device).manual_seed(seed + 1)
         return LearnerState(params, adam_init(params), env_state, obs, carry, rng, 0)
@@ -300,8 +302,10 @@ class Learner:
         ls, batch = self.collect_rollout(ls, next_scenes, shaping)
         return self._update_from_batch(ls, batch)
 
-    def _apply(self, params, opt_state, batch, norm_adv, returns, progress):
+    def _apply(self, params, opt_state, batch, norm_adv, returns, progress, pmean=None):
         _, metrics, grads = self.loss_and_grads(params, batch, norm_adv, returns, progress)
+        if pmean is not None:
+            grads, metrics = pmean(grads), pmean(metrics)
         with torch.no_grad():
             if self.cfg.max_grad_norm > 0:
                 grads = clip_by_global_norm(grads, self.cfg.max_grad_norm)
@@ -309,7 +313,11 @@ class Learner:
                                             self.learning_rate(opt_state["count"]))
         return params, opt_state, metrics
 
-    def _update_from_batch(self, ls: LearnerState, batch: RolloutBatch):
+    def _update_from_batch(self, ls: LearnerState, batch: RolloutBatch, pmean=None):
+        """GAE and the PPO update(s) of one rollout. `pmean` (data parallel,
+        parallel.ParallelLearner.pmean; the reference's `axis_name`) averages
+        the gradients and metrics over the ranks after the backward pass,
+        before the clip and Adam."""
         with torch.no_grad():
             _, last_value, _ = self._policy(ls.params, ls.obs, ls.carry)
             norm_adv, returns = self._gae(batch, last_value)
@@ -319,11 +327,11 @@ class Learner:
         progress = ls.step / cfg.total_env_steps if cfg.total_env_steps > 0 else 0.0
         if cfg.num_epochs <= 1 and n_mb <= 1:
             params, opt_state, metrics = self._apply(params, opt_state, batch, norm_adv,
-                                                     returns, progress)
+                                                     returns, progress, pmean)
         else:
             # Sequence-level minibatching (SF-style: whole rollouts per env,
             # the truncated-BPTT state stays valid); env axis shuffled per epoch.
-            b = self.num_envs
+            b = batch.reward.shape[1]   # this rank's envs
             if b % n_mb:
                 raise ValueError(f"num_envs {b} is not a multiple of num_minibatches {n_mb}")
             for _ in range(max(1, cfg.num_epochs)):
@@ -332,7 +340,7 @@ class Learner:
                     idx = perm[m * (b // n_mb):(m + 1) * (b // n_mb)]
                     params, opt_state, metrics = self._apply(
                         params, opt_state, minibatch(batch, idx),
-                        norm_adv[:, idx], returns[:, idx], progress)
+                        norm_adv[:, idx], returns[:, idx], progress, pmean)
         return ls._replace(params=params, opt_state=opt_state), metrics
 
 

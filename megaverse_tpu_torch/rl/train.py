@@ -18,6 +18,15 @@ Runs on the GPU; `--device cpu` runs it on the CPU (the renderer then takes
 the kernel's plain PyTorch version). At the end it writes the checkpoint and
 `train_summary.json` (rates, per-update times, last metrics) into
 <train_dir>/<experiment>.
+
+Data parallel (megaverse_tpu_torch/parallel): `--n_devices N` spawns N
+ranks, rank r on cuda:r (or on the CPU with `--device cpu`; gloo there, NCCL
+between cards), each holding num_envs / N of the envs: it generates only its
+envs' layouts (its slice of the global seed sequence) and refills only its
+own envs; the gradients are averaged over the ranks each update and rank 0
+writes the checkpoint and the summary. A process started by an outside
+launcher with the MEGAVERSE_COORDINATOR variables (or MEGAVERSE_DIST=1 and
+torchrun's) runs as its rank of that group instead of spawning.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -36,6 +46,13 @@ import torch
 from megaverse_tpu_torch import constants as C
 from megaverse_tpu_torch.convert import actor_critic_from_flax
 from megaverse_tpu_torch.env import render_batch
+from megaverse_tpu_torch.parallel import (
+    ParallelLearner,
+    maybe_initialize_distributed,
+    shutdown_distributed,
+    spawn,
+    world,
+)
 from megaverse_tpu_torch.rl.checkpoint import is_port_opt_state, load_checkpoint, save_checkpoint
 from megaverse_tpu_torch.rl.learner import Learner, TrainConfig, opt_state_from_numpy
 from megaverse_tpu_torch.scenarios import make_scenario
@@ -75,7 +92,8 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="devices to shard the env batch over; only 1 so far")
+                   help="ranks (one per device) to shard the env batch over; "
+                        "num_envs must divide by it")
     p.add_argument("--train_dir",
                    default=os.path.join(tempfile.gettempdir(), "megaverse_tpu_torch_train"))
     p.add_argument("--experiment", default="default")
@@ -97,11 +115,20 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def resolve_device(name: str) -> torch.device:
+def resolve_device(name: str, rank: int = 0, world_size: int = 1) -> torch.device:
+    """The device of this rank: `name`, and with several ranks on CUDA the
+    rank's own card (LOCAL_RANK when a launcher sets it); a rank without a
+    card of its own raises (NCCL refuses two ranks on one card)."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("training runs on a CUDA device by default and none is "
                            "available; pass --device cpu to run on the CPU")
+    if device.type == "cuda" and world_size > 1:
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(f"rank {rank} (local rank {local}) has no card of its own: "
+                               f"{torch.cuda.device_count()} CUDA devices")
+        device = torch.device("cuda", local)
     return device
 
 
@@ -120,31 +147,42 @@ class _Task:
     (megaverse/megaverse_env.py:27-39, train_megaverse.py:32-42).
     """
 
-    def __init__(self, name: str, args, cfg: TrainConfig, seed: int, device: torch.device):
+    def __init__(self, name: str, args, cfg: TrainConfig, seed: int, device: torch.device,
+                 rank: int = 0, world_size: int = 1):
         self.name = name
         self.scenario = make_scenario(name, num_agents=args.num_agents_per_env)
-        self.num_envs = args.num_envs
+        if args.num_envs % world_size:
+            raise ValueError(f"--num_envs {args.num_envs} does not divide over "
+                             f"{world_size} ranks")
+        # this rank's envs: global indices lo .. lo + num_envs - 1
+        self.num_envs = args.num_envs // world_size
+        lo = rank * self.num_envs
         self.cfg = cfg
         self.device = device
         self._segments = self.scenario.cfg.prop_segments
         self._hw_boxes = 0
         self._hw_props = [0] * len(self._segments) if self._segments else 0
 
+        # each env's layout stream is keyed by its global index
         ss = np.random.SeedSequence(seed)
-        self.gens = [np.random.Generator(np.random.PCG64(s)) for s in ss.spawn(self.num_envs)]
+        self.gens = [np.random.Generator(np.random.PCG64(s))
+                     for s in ss.spawn(args.num_envs)[lo:lo + self.num_envs]]
 
         first = self.gen_batch(range(self.num_envs))
         self.next_scenes = self.gen_batch(range(self.num_envs))
         # Render-table bucket (see env.render_batch): 1.5x headroom over the
         # initial high-water mark; rebuilt when a later layout exceeds it.
         self.bucket = self._bucket_for(margin=1.5)
-        self.learner = Learner(self.scenario, self.num_envs, cfg, render_bucket=self.bucket,
+        self.learner = Learner(self.scenario, args.num_envs, cfg, render_bucket=self.bucket,
                                device=device)
-        rng = torch.arange(self.num_envs, dtype=torch.int64, device=device) + (seed << 20)
+        # the learner's rollout and update, data-parallel over the ranks
+        self.runner = ParallelLearner(self.learner) if world_size > 1 else self.learner
+        rng = torch.arange(lo, lo + self.num_envs, dtype=torch.int64, device=device) \
+            + (seed << 20)
         env_state = state_from_scene(first, args.num_agents_per_env, rng)
         obs = render_batch(self.scenario, env_state, fmt="packed", bucket=self.bucket,
                            mode=self.learner.render_mode)
-        self.ls = self.learner.init(seed, env_state, obs)
+        self.ls = self.runner.init(seed, env_state, obs)
         self.shaping = torch.from_numpy(np.tile(
             self.scenario.shaping_array()[None], (self.num_envs, 1, 1))).to(device)
         self.spirit_col = self.scenario.all_shaping_keys.index(C.P_TEAM_SPIRIT)
@@ -255,10 +293,45 @@ def resolve_task_list(env_name: str):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.n_devices not in (None, 1):
-        raise NotImplementedError("--n_devices > 1: the data-parallel scale-out "
-                                  "(megaverse_tpu/parallel) is not ported yet")
-    device = resolve_device(args.device)
+    n = args.n_devices or 1
+    launched = bool(os.environ.get("MEGAVERSE_COORDINATOR") or os.environ.get("MEGAVERSE_DIST"))
+    if n > 1 and not launched:
+        if args.num_envs % n:
+            raise ValueError(f"--num_envs {args.num_envs} does not divide over {n} devices")
+        if torch.device(args.device).type == "cuda":
+            have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if have < n:
+                raise RuntimeError(f"--n_devices {n}: only {have} CUDA devices")
+        out_dir = Path(args.train_dir) / args.experiment
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # the ranks meet at a file that does not exist yet (no port to pick)
+        init = out_dir / f".dist_init_{os.getpid()}_{time.time_ns()}"
+        try:
+            spawn(_rank_main, n, f"file://{init}",
+                  args=(sys.argv[1:] if argv is None else argv,))
+        finally:
+            init.unlink(missing_ok=True)
+        return 0
+    return _run(args)
+
+
+def _rank_main(rank: int, world_size: int, argv) -> None:
+    try:
+        if _run(parse_args(argv)) != 0:
+            raise RuntimeError(f"rank {rank} failed")
+    finally:
+        shutdown_distributed()
+
+
+def _run(args) -> int:
+    maybe_initialize_distributed(device=args.device)
+    rank, world_size = world()
+    if args.n_devices and world_size != args.n_devices:
+        raise RuntimeError(f"--n_devices {args.n_devices}, but the process group has "
+                           f"{world_size} ranks")
+    device = resolve_device(args.device, rank, world_size)
+    if device.type == "cuda" and world_size > 1:
+        torch.cuda.set_device(device)
     num_envs = args.num_envs
     cfg = TrainConfig(rollout=args.rollout, lr=args.learning_rate,
                       gamma=args.gamma, hidden_size=args.hidden_size,
@@ -275,23 +348,29 @@ def main(argv=None):
 
     t_setup = time.perf_counter()
     names = resolve_task_list(args.env)
-    tasks = [_Task(n, args, cfg, args.seed + 1000 * i, device) for i, n in enumerate(names)]
+    tasks = [_Task(n, args, cfg, args.seed + 1000 * i, device, rank, world_size)
+             for i, n in enumerate(names)]
     try:
-        return _train(args, cfg, tasks, device, num_envs, time.perf_counter() - t_setup)
+        return _train(args, cfg, tasks, device, num_envs, time.perf_counter() - t_setup,
+                      lead=rank == 0)
     finally:
         for t in tasks:
             t.close()
 
 
-def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: float):
+def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: float,
+           lead: bool = True):
+    """The update loop. `num_envs` is the global batch; `lead` (rank 0)
+    prints, checkpoints and writes the summary."""
+    log = print if lead else (lambda *a, **k: None)
     for spec in args.set_shaping:
         key, _, val = spec.partition("=")
         for t in tasks:
             if key in t.scenario.all_shaping_keys:
                 t.shaping[:, :, t.scenario.all_shaping_keys.index(key)] = float(val)
-                print(f"[shaping] {t.name}: {key} = {float(val)}", flush=True)
+                log(f"[shaping] {t.name}: {key} = {float(val)}", flush=True)
             else:
-                print(f"[shaping] {t.name} has no key {key!r}; skipped", flush=True)
+                log(f"[shaping] {t.name} has no key {key!r}; skipped", flush=True)
     # Policy weights and optimizer state are shared across tasks.
     params, opt_state = tasks[0].ls.params, tasks[0].ls.opt_state
 
@@ -308,7 +387,7 @@ def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: 
         params = {k: v.to(device) for k, v in actor_critic_from_flax(ckpt["params"]).items()}
         opt_state = opt_state_from_numpy(ckpt["opt_state"], device)
         steps_done = int(ckpt["steps"])
-        print(f"resumed from {ckpt_path} at {steps_done:,} env steps", flush=True)
+        log(f"resumed from {ckpt_path} at {steps_done:,} env steps", flush=True)
     last_save = steps_done
     start_steps = steps_done
     if device.type == "cuda":
@@ -322,10 +401,10 @@ def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: 
         ls = task.ls._replace(params=params, opt_state=opt_state)
         _sync(device)
         t_start = time.perf_counter()
-        ls, batch = task.learner.collect_rollout(ls, task.next_scenes, task.shaping)
+        ls, batch = task.runner.collect_rollout(ls, task.next_scenes, task.shaping)
         _sync(device)
         t_mid = time.perf_counter()
-        ls, metrics = task.learner._update_from_batch(ls, batch)
+        ls, metrics = task.runner._update_from_batch(ls, batch)
         _sync(device)
         rollout_ms.append(1e3 * (t_mid - t_start))
         update_ms.append(1e3 * (time.perf_counter() - t_mid))
@@ -344,25 +423,29 @@ def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: 
         if it % 10 == 0:
             m = {k: float(v) for k, v in metrics.items()}
             sps = (steps_done - start_steps) / (time.perf_counter() - t0)
-            print(f"steps {steps_done:,}  {sps:,.0f} env-steps/s  "
-                  f"task {task.name}  loss {m['loss']:.4f}  "
-                  f"reward {m['reward_mean']:.4f}  entropy {m['entropy']:.3f}  "
-                  f"rollout {rollout_ms[-1]:.1f} ms  update {update_ms[-1]:.1f} ms",
-                  flush=True)
+            log(f"steps {steps_done:,}  {sps:,.0f} env-steps/s  "
+                f"task {task.name}  loss {m['loss']:.4f}  "
+                f"reward {m['reward_mean']:.4f}  entropy {m['entropy']:.3f}  "
+                f"rollout {rollout_ms[-1]:.1f} ms  update {update_ms[-1]:.1f} ms",
+                flush=True)
 
         if steps_done - last_save >= args.save_every_steps:
             last_save = steps_done
-            save_checkpoint(ckpt_path, params, opt_state, steps_done)
-            print(f"saved checkpoint at {steps_done:,} steps", flush=True)
+            if lead:
+                save_checkpoint(ckpt_path, params, opt_state, steps_done)
+            log(f"saved checkpoint at {steps_done:,} steps", flush=True)
 
     seconds = time.perf_counter() - t0
-    if steps_done > last_save:
+    if steps_done > last_save and lead:
         save_checkpoint(ckpt_path, params, opt_state, steps_done)
-        print(f"saved checkpoint at {steps_done:,} steps", flush=True)
+        log(f"saved checkpoint at {steps_done:,} steps", flush=True)
+    if not lead:
+        return 0
     trained = steps_done - start_steps
     agents = args.num_agents_per_env
     summary = {
         "env": args.env, "num_envs": num_envs, "num_agents_per_env": agents,
+        "n_devices": world()[1],
         "rollout": cfg.rollout, "hidden_size": cfg.hidden_size, "device": str(device),
         "updates": it, "env_steps": trained, "steps_done": steps_done,
         "setup_seconds": setup_seconds, "seconds": seconds,
@@ -375,7 +458,7 @@ def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: 
         "metrics": {k: float(v) for k, v in metrics.items()},
     }
     (out_dir / "train_summary.json").write_text(json.dumps(summary, indent=1))
-    print(f"done: {steps_done:,} env steps in {seconds:.1f}s", flush=True)
+    log(f"done: {steps_done:,} env steps in {seconds:.1f}s", flush=True)
     return 0
 
 

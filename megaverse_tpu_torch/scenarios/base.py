@@ -16,9 +16,7 @@ A scenario has two halves:
 Reward shaping (ref scenario.hpp:184-215) is runtime-mutable per agent, so it is
 carried as a [B, A, K] tensor whose columns follow `shaping_keys` order.
 
-Counterpart of megaverse_tpu/scenarios/base.py; the greedy box merge is the
-numpy path only (the port's native loader, utils/native.py, serves only the
-hex scenes' portal search).
+Counterpart of megaverse_tpu/scenarios/base.py.
 """
 
 from __future__ import annotations
@@ -311,8 +309,23 @@ def greedy_merge_boxes(vtype: np.ndarray, vcolor: np.ndarray, g: GridConfig):
     (component_voxel_grid.hpp:108-187): expands axis-aligned parallelepipeds of
     matching voxels so the renderer tests a handful of boxes instead of
     thousands of voxels (x, then y, then z scan order; each seed voxel expands
-    along z, then x, then y).
+    along z, then x, then y). Uses the native C++ kernel when available
+    (native/megaverse_native.cpp, through utils/native.py), the numpy path
+    below otherwise (no library, or MEGAVERSE_NO_NATIVE set).
     """
+    from megaverse_tpu_torch.utils import native
+
+    merged = native.greedy_merge(vtype, vcolor)
+    if merged is not None:
+        lo_i, hi_i, cols = merged
+        vs = g.voxel_size
+        origin = np.asarray(g.origin)
+        return [
+            ((origin + lo_i[i] * vs).astype(np.float32),
+             (origin + hi_i[i] * vs).astype(np.float32), int(cols[i]))
+            for i in range(len(cols))
+        ]
+
     opaque = (vtype & C.VOXEL_OPAQUE) != 0
     # Voxels that are solid but not opaque still need rendering in the
     # reference only when OPAQUE is set; solid-only voxels are invisible

@@ -53,7 +53,15 @@ class PerlinNoise2D:
     def octave_noise_0_1(self, x, y, octaves: int):
         """Accumulated octave noise mapped to [0, 1]
         (siv accumulatedOctaveNoise2D_0_1 semantics)."""
+        from megaverse_tpu_torch.utils import native
+
         shape = np.broadcast(x, y).shape
+        xb = np.broadcast_to(np.asarray(x, float), shape)
+        yb = np.broadcast_to(np.asarray(y, float), shape)
+        out = native.perlin_octave_0_1(self._perm, xb, yb, max(1, int(octaves)))
+        if out is not None:
+            return out.reshape(shape)
+
         total = np.zeros(shape)
         amp = 1.0
         fx, fy = np.asarray(x, float), np.asarray(y, float)

@@ -16,6 +16,16 @@ deterministic regardless of refill timing.
 
 The step loop is eager PyTorch on the current CUDA stream; it makes no
 device-to-host synchronisation inside a `step_many` chunk.
+
+Render size classes (`_render_classes`, as the reference's): envs are grouped
+by the live row counts of their layouts into up to six classes, each class
+renders through its own table size, and one inverse-permutation gather puts
+the frames back in env order. They are OFF unless MEGAVERSE_CLASSES=1
+(MEGAVERSE_NO_CLASSES=1 turns them off whatever else is set), the
+reference's rule on the TPU, for the reason it gives there: the bit-walk (B2)
+culls a padded row at the cost of one bit, so padding costs little, while on
+this launch-bound step every class adds its own cull prologue and B2 launch.
+Turning them on by default waits for a benchmark cell that shows a gain.
 """
 
 from __future__ import annotations
@@ -30,7 +40,13 @@ import numpy as np
 import torch
 
 from megaverse_tpu_torch import constants as C
-from megaverse_tpu_torch.env import RenderMode, env_step, render_batch
+from megaverse_tpu_torch.env import (
+    RenderMode,
+    env_step,
+    render_batch,
+    render_view,
+    render_view_index,
+)
 from megaverse_tpu_torch.ops.raycast_cuda import unpack_rgb
 from megaverse_tpu_torch.scenarios import make_scenario
 from megaverse_tpu_torch.scenarios.base import Scenario
@@ -70,7 +86,15 @@ class VectorEnv:
 
     `device=None` means "cuda" and raises if no GPU is present; pass
     device="cpu" to run on the CPU (the renderer then takes the kernel's plain
-    PyTorch version)."""
+    PyTorch version).
+
+    `shard=(rank, world_size)`: this object holds and steps only its share of
+    a `num_envs`-env batch split over `world_size` processes (the reference's
+    `device=NamedSharding(mesh, P("data"))`): envs `env_offset` to
+    `env_offset + num_envs // world_size`, each seeded from its GLOBAL index,
+    so the ranks' observations, gathered in rank order, equal one process's
+    bit for bit. `self.num_envs` is then the envs held here and
+    `self.global_num_envs` the whole batch; actions are this shard's rows."""
 
     def __init__(
         self,
@@ -83,6 +107,7 @@ class VectorEnv:
         obs_format: str = "auto",
         device=None,
         rng_mode: str = "numpy",
+        shard: Optional[tuple] = None,
     ):
         if device is None:
             if not torch.cuda.is_available():
@@ -96,7 +121,13 @@ class VectorEnv:
         self.scenario: Scenario = make_scenario(
             scenario_name, num_agents=num_agents_per_env, params=params
         )
-        self.num_envs = num_envs
+        rank, world_size = shard if shard is not None else (0, 1)
+        if world_size < 1 or not 0 <= rank < world_size or num_envs % world_size:
+            raise ValueError(f"shard {shard}: num_envs {num_envs} must divide into "
+                             "world_size shards and 0 <= rank < world_size")
+        self.global_num_envs = num_envs
+        self.num_envs = num_envs // world_size
+        self.env_offset = rank * self.num_envs
         self.num_agents_per_env = num_agents_per_env
         self.render_obs = render
         # "packed" int32 [B,A,H,W] is the on-device obs format: one word per
@@ -124,7 +155,7 @@ class VectorEnv:
         self.seed(seed)
 
         self.shaping = torch.from_numpy(
-            np.tile(self.scenario.shaping_array()[None], (num_envs, 1, 1))
+            np.tile(self.scenario.shaping_array()[None], (self.num_envs, 1, 1))
         ).to(self.device)
 
         # Render-table bucket: (max live boxes, max live props) across the
@@ -139,6 +170,7 @@ class VectorEnv:
         self._hw_boxes = 0
         segs = self.scenario.cfg.prop_segments
         self._hw_props = [0] * len(segs) if segs else 0
+        self._init_render_classes()
 
         self.state: Optional[EnvState] = None
         self.next_scenes: Optional[SceneData] = None
@@ -155,8 +187,137 @@ class VectorEnv:
 
     # ---------------------------------------------------------------- renderer
     def _render(self, state: EnvState) -> torch.Tensor:
+        if self._use_classes:
+            return self._render_classes(state)
         return render_batch(self.scenario, state, fmt=self.obs_format,
                             bucket=self._bucket, mode=self.render_mode)
+
+    # -------------------------------------------------- render size classes
+    # One outlier layout must not set the whole batch's table size: the
+    # renderer's cost grows with the table's rows and row counts are heavy-
+    # tailed (Collect: p50 = 44 merged boxes, max ~550). Envs are partitioned
+    # by their CURRENT layout's live row counts into a few fixed classes;
+    # each class renders through its own table size and the frames are
+    # reassembled by one inverse-permutation gather. Class membership is host
+    # bookkeeping, exact and conservative: an env's rows are max(current
+    # episode, buffered next layout), covering auto-resets that consume the
+    # buffer between refills. (megaverse_tpu/vector_env.py:330-481.)
+    _CLASS_MIN_ROWS = 256       # only partition genuinely large scenarios
+    _CLASS_MIN_ENVS = 64
+    _NUM_CLASSES = 6
+
+    def _init_render_classes(self) -> None:
+        want = (os.environ.get("MEGAVERSE_CLASSES") == "1"
+                and not os.environ.get("MEGAVERSE_NO_CLASSES"))
+        self._use_classes = (self.render_obs and want
+                             and sum(self._class_dims()) >= self._CLASS_MIN_ROWS
+                             and self.num_envs >= self._CLASS_MIN_ENVS)
+        if self._use_classes:
+            self._build_class_ladder()
+
+    def _class_dims(self) -> list:
+        """Row capacities: boxes, then each prop segment (or all props)."""
+        cfg = self.scenario.cfg
+        seg_caps = [cap for _, _, cap in cfg.prop_segments] or [int(cfg.max_props)]
+        return [int(self.scenario.max_boxes)] + seg_caps
+
+    def _build_class_ladder(self) -> None:
+        K = self._NUM_CLASSES
+        box_cap, *seg_caps = self._class_dims()
+        roundup = lambda n, q: ((max(int(n), 1) + q - 1) // q) * q
+
+        def levels(cap):
+            # Geometric ladder (ratio 1.6: padding an env one class up costs
+            # ratio - 1 extra work); every level gets at least min(cap, 48)
+            # rows, so small tables never drag envs into costly classes.
+            out = []
+            for k in range(K):
+                frac = max(cap / (1.6 ** (K - 1 - k)), min(cap, 48))
+                out.append(min(cap, roundup(frac, 8)))
+            return out
+
+        # ladder[k] = (box_rows, (segment rows, ...))
+        box_lv = levels(box_cap)
+        seg_lv = [levels(c) for c in seg_caps]
+        self._class_ladder = [(box_lv[k], tuple(lv[k] for lv in seg_lv)) for k in range(K)]
+        self._cls_rows_cur: Optional[np.ndarray] = None  # [B, D]
+        self._cls_rows_buf: Optional[np.ndarray] = None
+        self._cls_groups: list = []     # [(class k, padded env indices on the device)]
+        self._cls_inv: Optional[torch.Tensor] = None    # inverse permutation [B]
+
+    def set_render_classes(self, on: bool) -> None:
+        """Turn render size classes on or off for this env from now on,
+        whatever the environment variables and size thresholds say. The
+        class rows are read from the current states and the buffered layouts
+        on the device (one device-to-host copy)."""
+        self._use_classes = bool(on and self.render_obs)
+        if not self._use_classes:
+            return
+        self._build_class_ladder()
+        if self.state is not None:
+            self._cls_rows_cur = self._layout_rows(self.state.box_color, self.state.props.type)
+            self._cls_rows_buf = self._layout_rows(self.next_scenes.box_color,
+                                                   self.next_scenes.props.type)
+            self._rebuild_class_groups()
+
+    def _layout_rows(self, box_color, types) -> np.ndarray:
+        """Live render-row counts [N, 1 + num_segments] of N layouts (boxes,
+        then the props of each segment), from their box colours [N, boxes]
+        and prop types [N, props] (numpy or tensors)."""
+        box_color, types = (torch.as_tensor(x) for x in (box_color, types))
+        rows = [(box_color > 0).sum(dim=1)]
+        segments = self.scenario.cfg.prop_segments
+        if segments:
+            rows += [(types[:, start:start + cap] != C.PROP_NONE).sum(dim=1)
+                     for _, start, cap in segments]
+        else:
+            rows.append((types != C.PROP_NONE).sum(dim=1))
+        return torch.stack(rows, dim=1).cpu().numpy().astype(np.int32)
+
+    def _class_of(self, rows: np.ndarray) -> np.ndarray:
+        """Smallest ladder class covering each env's rows. rows [B, D]."""
+        cls = np.full((rows.shape[0],), len(self._class_ladder) - 1, np.int32)
+        for k in reversed(range(len(self._class_ladder) - 1)):
+            mb, pb = self._class_ladder[k]
+            lim = np.asarray([mb, *pb], np.int32)
+            cls = np.where((rows <= lim[None, :]).all(axis=1), k, cls)
+        return cls
+
+    def _rebuild_class_groups(self) -> None:
+        cls = self._class_of(np.maximum(self._cls_rows_cur, self._cls_rows_buf))
+        n = self.num_envs
+        # Group padding: 32, 64, then multiples of 128: a padded entry renders
+        # at its group's full table size.
+        pad_sizes = sorted({32, 64, *range(128, n + 1, 128), n})
+        groups, order_parts = [], []
+        for k in range(len(self._class_ladder)):
+            idx = np.nonzero(cls == k)[0]
+            if idx.size == 0:
+                continue
+            padded = next(p for p in pad_sizes if p >= idx.size)
+            full = np.full((padded,), idx[0], np.int64)
+            full[:idx.size] = idx
+            groups.append((k, torch.from_numpy(full).to(self.device)))
+            order_parts.append(full)
+        order = np.concatenate(order_parts)
+        # inverse permutation: each env's FIRST place in the concatenation
+        # (padding repeats an env index after its real place)
+        first = np.unique(order, return_index=True)[1]
+        self._cls_groups = groups
+        self._cls_inv = torch.from_numpy(first.astype(np.int64)).to(self.device)
+
+    def _render_classes(self, state: EnvState) -> torch.Tensor:
+        """Per-class gather -> render, then one inverse-permutation gather."""
+        segmented = bool(self.scenario.cfg.prop_segments)
+        view = render_view(state)
+        parts = []
+        for k, idx in self._cls_groups:
+            box_rows, seg_rows = self._class_ladder[k]
+            bucket = (box_rows, seg_rows if segmented else seg_rows[0])
+            parts.append(render_batch(self.scenario, render_view_index(view, idx),
+                                      fmt=self.obs_format, bucket=bucket,
+                                      mode=self.render_mode))
+        return torch.cat(parts, dim=0)[self._cls_inv]
 
     def _note_layout_counts(self, scenes) -> None:
         segments = self.scenario.cfg.prop_segments
@@ -210,12 +371,15 @@ class VectorEnv:
         # Drain the prefetch worker BEFORE swapping generators: a pending task
         # resolves self._gens[i] at run time and must not touch the new streams.
         self._reset_prefetch()
+        # every env's stream is keyed by its global index: a shard takes its
+        # slice of the whole batch's seeds, never seeds of its own
+        mine = slice(self.env_offset, self.env_offset + self.num_envs)
         if self.rng_mode == "reference":
-            self._gens = [Rng(s) for s in fan_out_env_seeds(seed, self.num_envs)]
+            self._gens = [Rng(s) for s in fan_out_env_seeds(seed, self.global_num_envs)[mine]]
         else:
             ss = np.random.SeedSequence(seed)
             self._gens = [np.random.Generator(np.random.PCG64(s))
-                          for s in ss.spawn(self.num_envs)]
+                          for s in ss.spawn(self.global_num_envs)[mine]]
 
     # --------------------------------------------------------------- prefetch
     # Layout generation is host-side numpy; at high throughput the synchronous
@@ -266,6 +430,10 @@ class VectorEnv:
         t0 = time.perf_counter()
         scenes = [self._pop_scene(i) for i in env_indices]
         self._note_layout_counts(scenes)
+        if self._use_classes:
+            self._last_gen_rows = self._layout_rows(
+                np.stack([sc.box_color for sc in scenes]),
+                np.stack([sc.props.type for sc in scenes]))
         batch = scene_to_device(stack_scenes(scenes, pad_to=pad_to), self.device,
                                 non_blocking=True)
         self.layout_seconds += time.perf_counter() - t0
@@ -274,8 +442,14 @@ class VectorEnv:
     def reset(self) -> torch.Tensor:
         all_idx = range(self.num_envs)
         first = self._generate_batch(all_idx)
+        if self._use_classes:
+            self._cls_rows_cur = self._last_gen_rows
         self.next_scenes = self._generate_batch(all_idx)
-        rng = torch.arange(self.num_envs, dtype=torch.int64, device=self.device) \
+        if self._use_classes:
+            self._cls_rows_buf = self._last_gen_rows
+            self._rebuild_class_groups()
+        rng = torch.arange(self.env_offset, self.env_offset + self.num_envs,
+                           dtype=torch.int64, device=self.device) \
             + (int(self._master_seed) << 20)
         self.state = state_from_scene(first, self.num_agents_per_env, rng)
         self._steps_since_poll = 0
@@ -468,6 +642,11 @@ class VectorEnv:
         # out of place (tree_scatter builds new leaves): steps already queued
         # keep reading the old buffer, and `state` never aliases either one
         self.next_scenes = tree_scatter(self.next_scenes, idx_dev, new_scenes)
+        if self._use_classes:
+            # done envs consumed their buffered layout; the new one is buffered
+            self._cls_rows_cur[idx] = self._cls_rows_buf[idx]
+            self._cls_rows_buf[idx] = self._last_gen_rows
+            self._rebuild_class_groups()
         self.num_refills += 1
         self.num_refilled_envs += int(n)
         self._update_bucket()

@@ -1,5 +1,6 @@
 """The port stands alone: importing megaverse_tpu_torch (and every submodule)
-pulls in neither JAX nor the JAX package, and chip_smoke.py names neither."""
+pulls in neither JAX nor the JAX package, and neither chip_smoke.py nor the
+port's scripts (scripts/*_torch.py) names either."""
 
 import os
 import pkgutil
@@ -20,12 +21,21 @@ def submodules():
     return sorted(names)
 
 
+def port_scripts():
+    return sorted(os.path.join(ROOT, "scripts", f) for f in os.listdir(os.path.join(ROOT, "scripts"))
+                  if f.endswith("_torch.py"))
+
+
 def test_every_submodule_imports_without_jax():
+    """Every module of the port and every script/*_torch.py (module level)."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"names = {submodules()!r}\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        f"for path in {port_scripts()!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('script', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'megaverse_tpu'))\n"
         "print('BAD=' + ','.join(bad))\n"
@@ -51,7 +61,9 @@ def test_expected_modules_exist():
                  "utils.synthetic", "utils.perlin", "utils.refperlin", "utils.refsort",
                  "utils.boxoban", "utils.native", "utils.hexmaze", "utils.pvs",
                  "models.actor_critic", "rl.learner", "rl.train", "rl.enjoy",
-                 "rl.wrappers", "rl.checkpoint", "gym_env"):
+                 "rl.wrappers", "rl.checkpoint", "gym_env", "rl.runs", "utils.logging",
+                 "utils.mazelib", "parallel", "parallel.distributed", "parallel.mesh",
+                 "entry"):
         assert f"megaverse_tpu_torch.{want}" in names, want
     assert os.path.exists(os.path.join(ROOT, "megaverse_tpu_torch", "csrc", "render.cu"))
 
@@ -59,6 +71,7 @@ def test_expected_modules_exist():
 @pytest.mark.parametrize("path", ["chip_smoke.py", "scripts/torch_dispatch_count.py",
                                   "scripts/profile_torch_step.py",
                                   "scripts/learner_grad_agreement.py"] + sorted(
+    os.path.relpath(p, ROOT) for p in port_scripts()) + sorted(
     os.path.join(dp, f)[len(ROOT) + 1:]
     for dp, _, fs in os.walk(os.path.join(ROOT, "megaverse_tpu_torch"))
     for f in fs if f.endswith(".py")))

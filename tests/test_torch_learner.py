@@ -318,8 +318,12 @@ def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
 
 
 def test_train_cli_device_rules(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel"):
-        train.main(TRAIN_ARGS + ["--n_devices", "2", "--train_dir", str(tmp_path)])
+    """--n_devices N > 1 on the default device needs N cards (data
+    parallelism, tests/test_torch_parallel.py); without a GPU the default
+    device raises."""
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="CUDA devices"):
+            train.main(TRAIN_ARGS[:-2] + ["--n_devices", "2", "--train_dir", str(tmp_path)])
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable here")
     with pytest.raises(RuntimeError, match="CUDA"):
