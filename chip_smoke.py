@@ -89,6 +89,13 @@ megaverse_tpu_torch/csrc with nvcc, then
      for bit, and after one training step of the trainer's task (rollout 32,
      hidden 512, gradients averaged over the ranks) the replicas' parameters
      must be bit-equal; each rank's B2 launches == 1 + 3 + 1 + 32;
+  7. the sampling benchmark (bench_torch.py): `bench_torch.bench_scenario`
+     on TowerBuilding 1024 x 1 (BENCH_RUN: its layouts take seconds), the
+     benchmark's own warm-up (WARMUP_CHUNKS chunks of 64 with their flushes)
+     and 2 timed chunks of 64; it prints bench.py's JSON line for the run,
+     and B2 launches must equal 1 reset + every step (0 for the other
+     forms), the final state be finite, the envs' last frames differ and
+     obs/s be positive;
   5. times every form and its plain version at the Collect 1024 x 1 shape
      (B6 over B2, B3, B4's per-tile lists and B5; B1, B2, B3 and B6 over B2
      also at the TowerBuilding 1024 x 1 shape; B2 at the end state of each
@@ -97,9 +104,10 @@ megaverse_tpu_torch/csrc with nvcc, then
      sizes) and prints the `kernels` line (times, launches, largest error,
      roofline bound, clusters run per pixel).
 
-The phases run in the order 1, 2, 3, 4, 6, 5. `--phase kernels` stops after
-step 2, `--phase train` runs steps 1 and 4 only, `--phase parallel` steps 1
-and 6 only (none of them prints the result line).
+The phases run in the order 1, 2, 3, 7, 4, 6, 5. `--phase kernels` stops
+after step 2, `--phase train` runs steps 1 and 4 only, `--phase parallel`
+steps 1 and 6 only, `--phase bench` steps 1 and 7 only (none of them prints
+the result line).
 
 Any failed check raises and the script exits non-zero. The last line of the
 output is {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -174,6 +182,10 @@ PARALLEL_SAMPLING = dict(label="collect_512x2", name="Collect", num_envs=512, nu
 PARALLEL_TRAIN = dict(name="Collect", num_envs=512, num_agents=2, rollout=32,
                       hidden_size=512, seed=42)
 PARALLEL_DEVICES = ["cuda:0", "cuda:0"]
+
+# the bench phase: bench_torch.bench_scenario at the suite's width on a
+# scenario whose 2,048 layouts the host makes in seconds
+BENCH_RUN = dict(scenario="TowerBuilding", num_envs=1024, num_agents=1, chunk=64, chunks=2)
 
 
 def free_camera_view(env):
@@ -1064,6 +1076,41 @@ class Smoke:
               "ranks_seconds": ranks_seconds, "gpu": self.smi,
               "note": "first reading, not a claim; two ranks share one card"})
 
+    # ------------------------------------------------------------- phase 7
+    def bench(self) -> None:
+        """bench_torch.bench_scenario at BENCH_RUN, with the launch counts
+        zeroed before and read after; prints bench.py's line for the run."""
+        import bench_torch
+        RC = self.RC
+        run = BENCH_RUN
+        torch.cuda.synchronize()
+        RC.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = bench_torch.bench_scenario(run["scenario"], run["num_envs"], run["num_agents"],
+                                         chunk=run["chunk"], chunks=run["chunks"])
+        seconds = time.perf_counter() - t0
+        counts = dict(RC.LAUNCHES)
+        bench_torch.emit(run["scenario"], run["num_envs"], res.obs_per_sec,
+                         bench_torch.BASELINE_FPS.get(run["scenario"].lower(),
+                                                      bench_torch.BASELINE_EMPTY_FPS))
+        steps = run["chunk"] * (bench_torch.WARMUP_CHUNKS + run["chunks"])
+        emit({"phase": "bench", **run, "launches": counts, "obs_per_sec": res.obs_per_sec,
+              "timed_obs": res.n_obs, "timed_seconds": res.seconds, "seconds": seconds,
+              "finite": res.finite, "gpu": self.smi, "note": "first reading, not a claim"})
+        for k, n in counts.items():
+            if n != (1 + steps if k == "render_b2" else 0):
+                raise AssertionError(f"bench: launches {counts}, expected {1 + steps} of "
+                                     "render_b2 and no other")
+        if not res.finite:
+            raise AssertionError("bench: non-finite values in the final state")
+        if np.unique(res.checksums).size < 2:
+            raise AssertionError("bench: every env's last frame sums to the same value")
+        if not res.obs_per_sec > 0:
+            raise AssertionError(f"bench: obs/s {res.obs_per_sec}")
+        self.launches["render_b2"] += counts["render_b2"]
+        self.launches_by_part["bench"] = counts["render_b2"]
+        self.obs_per_s["bench"] = res.obs_per_sec
+
     # ------------------------------------------------------------- phase 5
     def time_forms(self, env, cases_wanted):
         """Kernel and plain-version milliseconds, bytes, operations and bound
@@ -1212,6 +1259,7 @@ class Smoke:
             if name == "render_b2":
                 row["launches_classes"] = self.launches_by_part.get("classes", 0)
                 row["launches_parallel_ranks"] = self.launches_by_part.get("parallel_ranks", 0)
+                row["launches_bench"] = self.launches_by_part.get("bench", 0)
                 # at the hex scenes the main path's B2 runs with the PVS mask
                 for scen, cases in at_new.items():
                     key = scen.lower()
@@ -1237,11 +1285,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--phase", default="all",
-                    choices=["all", "kernels", "train", "parallel"],
+                    choices=["all", "kernels", "train", "parallel", "bench"],
                     help="'kernels' stops after the kernel-vs-plain comparison, "
                          "'train' runs only the training path, 'parallel' only "
-                         "the data-parallel checks (none of them prints the "
-                         "result line)")
+                         "the data-parallel checks, 'bench' only the sampling "
+                         "benchmark's run (none of them prints the result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check only runs on the GPU",
@@ -1261,10 +1309,14 @@ def main() -> int:
         smoke.parallel_world_one()
         smoke.parallel_two_ranks()
         return 0
+    if args.phase == "bench":
+        smoke.bench()
+        return 0
     smoke.kernels_vs_plain()
     if args.phase == "kernels":
         return 0
     tower, collect, new_envs = smoke.main_path()
+    smoke.bench()
     smoke.train_update_check()
     smoke.train_path()
     smoke.parallel_world_one()

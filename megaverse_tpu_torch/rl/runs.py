@@ -12,13 +12,14 @@ Where the reference fans experiments out over slurm
 mesh inside each run; the launcher executes runs sequentially (or dry-prints
 them for external schedulers).
 
-The port's copy: every command runs megaverse_tpu_torch.rl.train (on the
-card; append --device cpu to a command for the CPU). The reference's
-sampling benchmark run (bench.py) waits for the port's own benchmark.
+The port's copy: the training runs' commands run megaverse_tpu_torch.rl.train
+and the sampling benchmark's run bench_torch.py at the repo root (both on the
+card; append --device cpu to a command for the CPU).
 
 Usage:
   python -m megaverse_tpu_torch.rl.runs --run=megaverse8_single_agent --dry
   python -m megaverse_tpu_torch.rl.runs --run=training_benchmark
+  python -m megaverse_tpu_torch.rl.runs --run=sampling_benchmark
 """
 
 from __future__ import annotations
@@ -111,6 +112,14 @@ _MULTITASK = Experiment(
     _TRAIN + " --num_envs=1024 --num_agents_per_env=1",
     ParamGrid([("env", ["multitask_megaverse8"]), ("seed", SEEDS)]).generate_params())
 
+_BENCH_TORCH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "bench_torch.py")
+_SAMPLING_BENCH = Experiment(
+    "benchmark_megaverse",
+    f"{shlex.quote(sys.executable)} {shlex.quote(_BENCH_TORCH)}",
+    ParamGrid([("scenario", ["ObstaclesHard", "Empty", "Collect"])]).generate_params())
+
 _TRAIN_BENCH = Experiment(
     "train_benchmark_megaverse",
     _TRAIN + " --num_envs=1024 --num_agents_per_env=1 "
@@ -125,7 +134,9 @@ RUNS: Dict[str, RunDescription] = {
         "megaverse8_multi_agent", [EXPERIMENT_2AGENTS, EXPERIMENT_4AGENTS]),
     "megaverse8_multitask": RunDescription(
         "megaverse8_multitask", [_MULTITASK]),
-    # training_benchmark.py
+    # performance_benchmark.py / training_benchmark.py
+    "sampling_benchmark": RunDescription(
+        "sampling_benchmark", [_SAMPLING_BENCH]),
     "training_benchmark": RunDescription(
         "training_benchmark", [_TRAIN_BENCH]),
 }

@@ -21,22 +21,12 @@ sizes (`--envs_per_device 2 --hidden_size 32`).
 import argparse
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-
-
-def card() -> str:
-    try:
-        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader"], capture_output=True, text=True,
-                              check=True).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.CalledProcessError):
-        return "no nvidia-smi"
 
 
 def main(argv=None) -> int:
@@ -59,7 +49,9 @@ def main(argv=None) -> int:
     from megaverse_tpu_torch import entry
     from megaverse_tpu_torch.rl import train
 
-    gpu = card() if args.device == "cuda" else "cpu"
+    import bench_torch
+
+    gpu = bench_torch.card() if args.device == "cuda" else "cpu"
     for n in args.n_devices:
         envs = args.envs_per_device * n
         with tempfile.TemporaryDirectory() as tmp:

@@ -1,6 +1,6 @@
 """The port stands alone: importing megaverse_tpu_torch (and every submodule)
-pulls in neither JAX nor the JAX package, and neither chip_smoke.py nor the
-port's scripts (scripts/*_torch.py) names either."""
+pulls in neither JAX nor the JAX package, and neither chip_smoke.py,
+bench_torch.py nor the port's scripts (scripts/*_torch.py) names either."""
 
 import os
 import pkgutil
@@ -27,13 +27,14 @@ def port_scripts():
 
 
 def test_every_submodule_imports_without_jax():
-    """Every module of the port and every script/*_torch.py (module level)."""
+    """Every module of the port, bench_torch.py and every script/*_torch.py
+    (module level)."""
     code = (
         "import importlib, importlib.util, sys\n"
         f"names = {submodules()!r}\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        f"for path in {port_scripts()!r}:\n"
+        f"for path in {port_scripts() + [os.path.join(ROOT, 'bench_torch.py')]!r}:\n"
         "    spec = importlib.util.spec_from_file_location('script', path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -63,12 +64,13 @@ def test_expected_modules_exist():
                  "models.actor_critic", "rl.learner", "rl.train", "rl.enjoy",
                  "rl.wrappers", "rl.checkpoint", "gym_env", "rl.runs", "utils.logging",
                  "utils.mazelib", "parallel", "parallel.distributed", "parallel.mesh",
-                 "entry"):
+                 "entry", "cli"):
         assert f"megaverse_tpu_torch.{want}" in names, want
     assert os.path.exists(os.path.join(ROOT, "megaverse_tpu_torch", "csrc", "render.cu"))
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "scripts/torch_dispatch_count.py",
+@pytest.mark.parametrize("path", ["chip_smoke.py", "bench_torch.py",
+                                  "scripts/torch_dispatch_count.py",
                                   "scripts/profile_torch_step.py",
                                   "scripts/learner_grad_agreement.py"] + sorted(
     os.path.relpath(p, ROOT) for p in port_scripts()) + sorted(

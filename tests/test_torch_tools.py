@@ -1,6 +1,8 @@
 """The port's tools on the CPU: utils/mazelib.py (mirrors of
 tests/test_mazes.py, and the same mazes as the JAX package's copy from the
-same seed), rl/runs.py (its commands run the port's trainer),
+same seed), rl/runs.py (its commands run the port's trainer, its
+sampling_benchmark run bench_torch.py), the pyproject console scripts,
+scripts/scaling_curve_torch.py (gloo ranks on the CPU),
 utils/logging.py, and the scripts scripts/*_torch.py driven through their
 `main` (record_episode_torch at 24 px with the free camera's overview,
 eval_policy_torch on a port and a JAX-format checkpoint at the network's
@@ -9,8 +11,10 @@ eval_policy_torch on a port and a JAX-format checkpoint at the network's
 import base64
 import importlib.util
 import io
+import json
 import os
 import pickle
+import tomllib
 
 import jax
 import jax.numpy as jnp
@@ -120,10 +124,14 @@ def test_outputs_and_mazegen(tmp_path):
 
 def test_runs_name_the_ports_trainer(capsys):
     assert set(runs.RUNS) == {"megaverse8_single_agent", "megaverse8_multi_agent",
-                              "megaverse8_multitask", "training_benchmark"}
-    for run in runs.RUNS.values():
+                              "megaverse8_multitask", "sampling_benchmark",
+                              "training_benchmark"}
+    for name, run in runs.RUNS.items():
         for _, cmd in run.commands():
-            assert " -m megaverse_tpu_torch.rl.train " in cmd, cmd
+            if name == "sampling_benchmark":
+                assert cmd.split()[1].endswith("bench_torch.py"), cmd
+            else:
+                assert " -m megaverse_tpu_torch.rl.train " in cmd, cmd
     assert len(runs.RUNS["megaverse8_single_agent"].commands()) == 8 * 5
     assert runs.main(["--run", "megaverse8_multi_agent", "--dry", "--max_runs", "2",
                       "--train_dir", "/nonexistent"]) == 0
@@ -198,3 +206,43 @@ def test_viewer_steps_and_renders(tmp_path):
         assert state.step(["Tab"])["agent"] == 1
     finally:
         state.env.close()
+
+
+@pytest.fixture
+def one_thread(monkeypatch):
+    """The spawned ranks inherit this: one intra-op thread each."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+
+
+def test_scaling_curve_two_rows(one_thread, capsys):
+    curve = script("scaling_curve_torch")
+    assert curve.main(["--device", "cpu", "--devices", "1,2", "--num_envs", "4",
+                       "--chunk", "4", "--chunks", "1"]) == 0
+    rows = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+    assert [r["n_devices"] for r in rows] == [1, 2]
+    assert rows[0]["vs_1dev"] == 1.0
+    assert all(r["obs_per_sec"] > 0 and r["gpu"] == "cpu" for r in rows)
+
+
+def test_sampling_benchmark_run(capsys):
+    cmds = runs.RUNS["sampling_benchmark"].commands()
+    assert [name for name, _ in cmds] == [
+        f"benchmark_megaverse_scenario_{s}" for s in ("ObstaclesHard", "Empty", "Collect")]
+    for _, cmd in cmds:
+        assert cmd.split()[1] == os.path.join(ROOT, "bench_torch.py")
+    assert runs.main(["--run", "sampling_benchmark", "--dry"]) == 0
+    assert capsys.readouterr().out.count("bench_torch.py --scenario=") == 3
+
+
+def test_console_scripts_resolve():
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    want = {"megaverse-tpu-torch-bench": "megaverse_tpu_torch.cli:bench_main",
+            "megaverse-tpu-torch-train": "megaverse_tpu_torch.rl.train:main",
+            "megaverse-tpu-torch-enjoy": "megaverse_tpu_torch.rl.enjoy:main"}
+    for name, target in want.items():
+        assert scripts[name] == target
+        mod, fn = target.split(":")
+        assert callable(getattr(importlib.import_module(mod), fn))
+    # the JAX package's three stay
+    assert scripts["megaverse-tpu-bench"] == "megaverse_tpu.cli:bench_main"
