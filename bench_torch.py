@@ -68,6 +68,7 @@ class BenchResult(NamedTuple):
     seconds: float        # the timed window's wall time
     checksums: np.ndarray  # int64 [num_envs]: each env's last frame summed, in env order
     finite: bool          # every floating-point leaf of every rank's final state is finite
+    env: object = None    # the VectorEnv, left open, with bench_scenario(keep_env=True)
 
 
 def card() -> str:
@@ -94,10 +95,12 @@ def action_pool(num_envs: int, num_agents: int, n_pool: int = ACTION_POOL) -> np
     return pool
 
 
-def _run(scenario_name, num_envs, num_agents, chunk, chunks, device, rank, world_size):
+def _run(scenario_name, num_envs, num_agents, chunk, chunks, device, rank, world_size,
+         keep=False):
     """One process's share: reset, warm-up, the timed window. Returns
     (window seconds, last frame's per-env checksums int64 [local envs],
-    whether the final state is finite)."""
+    whether the final state is finite, the env if `keep` else None: it is
+    closed unless kept)."""
     import torch.distributed as dist
 
     from megaverse_tpu_torch.types import tree_leaves
@@ -131,9 +134,10 @@ def _run(scenario_name, num_envs, num_agents, chunk, chunks, device, rank, world
         sums = obs.reshape(n, -1).sum(dim=1, dtype=torch.int64)
         finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(env.state)
                      if x.is_floating_point())
-        return dt, sums, finite
+        return dt, sums, finite, env if keep else None
     finally:
-        env.close()
+        if not keep:
+            env.close()
 
 
 def _rank_main(rank: int, world_size: int, spec: dict) -> None:
@@ -148,8 +152,8 @@ def _rank_main(rank: int, world_size: int, spec: dict) -> None:
         torch.set_num_threads(1)
     maybe_initialize_distributed(device=device)
     try:
-        dt, sums, finite = _run(spec["scenario"], spec["num_envs"], spec["num_agents"],
-                                spec["chunk"], spec["chunks"], device, rank, world_size)
+        dt, sums, finite, _ = _run(spec["scenario"], spec["num_envs"], spec["num_agents"],
+                                   spec["chunk"], spec["chunks"], device, rank, world_size)
         # the slowest rank's window, every rank's checksums in rank order, and
         # whether every rank's state is finite
         dt_t = torch.tensor([dt], dtype=torch.float64, device=device)
@@ -185,14 +189,19 @@ def rank_devices(n_devices: int, device: str = "cuda") -> list:
 
 def bench_scenario(scenario_name: str, num_envs: int, num_agents: int,
                    chunk: int = 64, chunks: int = 5, n_devices: int = 1,
-                   device: str = "cuda") -> BenchResult:
+                   device: str = "cuda", keep_env: bool = False) -> BenchResult:
     """Reset, warm up, then time `chunks` step_many chunks of `chunk` steps
-    of a `num_envs` x `num_agents` VectorEnv, over `n_devices` ranks."""
+    of a `num_envs` x `num_agents` VectorEnv, over `n_devices` ranks. With
+    `keep_env` (one rank only) the result holds the env, still open: the
+    caller closes it."""
     devices = rank_devices(n_devices, device)
+    env = None
     if n_devices == 1:
-        dt, sums, finite = _run(scenario_name, num_envs, num_agents, chunk, chunks,
-                                devices[0], 0, 1)
+        dt, sums, finite, env = _run(scenario_name, num_envs, num_agents, chunk, chunks,
+                                     devices[0], 0, 1, keep=keep_env)
         checksums = sums.cpu().numpy()
+    elif keep_env:
+        raise ValueError("keep_env needs one rank")
     else:
         from megaverse_tpu_torch.parallel import spawn
 
@@ -205,7 +214,7 @@ def bench_scenario(scenario_name: str, num_envs: int, num_agents: int,
         dt, finite = float(out["seconds"]), bool(out["finite"])
         checksums = out["checksums"].numpy()
     n_obs = num_envs * num_agents * chunk * chunks
-    return BenchResult(n_obs / dt, n_obs, dt, checksums, finite)
+    return BenchResult(n_obs / dt, n_obs, dt, checksums, finite, env)
 
 
 def emit(scenario: str, num_envs: int, fps: float, base: float) -> None:

@@ -35,10 +35,15 @@ megaverse_tpu_torch/csrc with nvcc, then
      version: the tolerance above;
   3. drives the main path at full width through `VectorEnv`: reset +
      `step_many` chunks of 64 steps with a random action pool (numpy seed 0) +
-     flush, for TowerBuilding 1024 x 1, Empty 4096 x 1, Collect 1024 x 1,
-     ObstaclesHard 1024 x 1, Sokoban, Rearrange, BoxAGone and Football 1024 x 1
-     (2 chunks each), HexExplore and HexMemory 1024 x 1 under the default
-     mode (B2, with the PVS mask of the hex scenes); on the TowerBuilding
+     flush, for Empty 4096 x 1, Collect 1024 x 1, ObstaclesHard 1024 x 1,
+     Sokoban, Rearrange, BoxAGone and Football 1024 x 1, HexExplore and
+     HexMemory 1024 x 1 (2 chunks each) under the default mode (B2, with the
+     PVS mask of the hex scenes), and TowerBuilding 1024 x 1 through the
+     sampling benchmark's entry point (bench_torch.bench_scenario, BENCH_RUN:
+     reset, its warm-up of WARMUP_CHUNKS chunks of 64 with their flushes and
+     2 timed chunks of 64; it prints bench.py's JSON line for the run; B2
+     launches == 1 reset + every step, the final state finite, the envs'
+     last frames not all alike, obs/s positive); on the TowerBuilding
      1024 x 1 env after its run one chunk of 16 steps with
      MEGAVERSE_NO_CLUSTER_CULL=1 (B1), and on the Collect 1024 x 1 env after
      its run one chunk of 16 steps each with MEGAVERSE_RENDER_MODE=super
@@ -60,7 +65,10 @@ megaverse_tpu_torch/csrc with nvcc, then
      states these runs end on (comparison launches are not counted; every
      form 0 levels from its plain version at the end states of Sokoban,
      Rearrange, BoxAGone and Football; B2 with the PVS mask equal to B1 at
-     the hex end states);
+     the hex end states). Then ObstaclesMedium, ObstaclesSteps,
+     ObstaclesWalls and ObstaclesLava (OBSTACLES_VARIANTS) at VARIANT_ENVS x 1
+     the same way (2 chunks), each held at its end state: every form equal
+     to B1, each within the tolerance of its own plain version, B2 timed;
   4. the training path (megaverse_tpu_torch.rl), at the full width of the
      repo's one model (hidden 512, 2-layer GRU, 72x128 observations): the
      learner's `_update_from_batch` on the card against the same update on
@@ -79,7 +87,15 @@ megaverse_tpu_torch/csrc with nvcc, then
      agents for 3 updates of rollout 32 (B2 launches == 3 * 32 + 1: one at
      init, one per rollout step; finite loss; parameters moved), and
      `rl.enjoy.main` plays the checkpoint it wrote on the card for 20 steps
-     (B2 launches == 21);
+     (B2 launches == 21); the same for TowerBuilding 256 x 4 (rl/runs.py's
+     megaverse_4ag) with team-spirit annealing over two updates' env steps
+     (the shaping column == min(1, steps done / max steps) after every
+     update), enjoy with four agents; and multitask training
+     (megaverse_multitask8: the Megaverse-8 x 1,024 envs, one shared policy
+     and Adam state, one update per task in MEGAVERSE8 order: B2 launches ==
+     8 * 32 + 8, every task's metrics finite, each task's envs advanced
+     only on its own turn; its line has the tasks' rollout and update ms,
+     setup seconds, device memory after setup and peak);
   6. data parallelism (megaverse_tpu_torch.parallel): NCCL at world size
      1, where one `ParallelLearner` update of step 4's float32 batch must be
      bit-equal to the plain learner's (cuDNN deterministic); then two gloo
@@ -89,25 +105,20 @@ megaverse_tpu_torch/csrc with nvcc, then
      for bit, and after one training step of the trainer's task (rollout 32,
      hidden 512, gradients averaged over the ranks) the replicas' parameters
      must be bit-equal; each rank's B2 launches == 1 + 3 + 1 + 32;
-  7. the sampling benchmark (bench_torch.py): `bench_torch.bench_scenario`
-     on TowerBuilding 1024 x 1 (BENCH_RUN: its layouts take seconds), the
-     benchmark's own warm-up (WARMUP_CHUNKS chunks of 64 with their flushes)
-     and 2 timed chunks of 64; it prints bench.py's JSON line for the run,
-     and B2 launches must equal 1 reset + every step (0 for the other
-     forms), the final state be finite, the envs' last frames differ and
-     obs/s be positive;
   5. times every form and its plain version at the Collect 1024 x 1 shape
      (B6 over B2, B3, B4's per-tile lists and B5; B1, B2, B3 and B6 over B2
      also at the TowerBuilding 1024 x 1 shape; B2 at the end state of each
-     run of Sokoban, Rearrange, BoxAGone, Football and the hex scenes, the
-     latter with and without the PVS mask; B1 for the free camera at its three
-     sizes) and prints the `kernels` line (times, launches, largest error,
-     roofline bound, clusters run per pixel).
+     run of Sokoban, Rearrange, BoxAGone, Football, the Obstacles variants
+     and the hex scenes, the latter with and without the PVS mask; B1 for the
+     free camera at its three sizes) and prints the `kernels` line (times,
+     launches, largest error, roofline bound, clusters run per pixel).
 
-The phases run in the order 1, 2, 3, 7, 4, 6, 5. `--phase kernels` stops
-after step 2, `--phase train` runs steps 1 and 4 only, `--phase parallel`
-steps 1 and 6 only, `--phase bench` steps 1 and 7 only (none of them prints
-the result line).
+The phases run in the order 1, 2, 3, 4, 6, 5; every phase line carries
+`wall_seconds`, the script's time since the previous phase line.
+`--phase kernels` stops after step 2, `--phase train` runs steps 1 and 4
+only, `--phase parallel` steps 1 and 6 only, `--phase bench` step 1 and
+step 3's TowerBuilding run, `--phase obstacles` step 1 and step 3's
+Obstacles variants (none of them prints the result line).
 
 Any failed check raises and the script exits non-zero. The last line of the
 output is {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -183,9 +194,31 @@ PARALLEL_TRAIN = dict(name="Collect", num_envs=512, num_agents=2, rollout=32,
                       hidden_size=512, seed=42)
 PARALLEL_DEVICES = ["cuda:0", "cuda:0"]
 
-# the bench phase: bench_torch.bench_scenario at the suite's width on a
-# scenario whose 2,048 layouts the host makes in seconds
+# the main path's TowerBuilding 1024 x 1 run goes through the sampling
+# benchmark's entry point, bench_torch.bench_scenario, at the suite's width:
+# reset, the benchmark's warm-up (WARMUP_CHUNKS chunks of 64 with their
+# flushes), 2 timed chunks of 64
 BENCH_RUN = dict(scenario="TowerBuilding", num_envs=1024, num_agents=1, chunk=64, chunks=2)
+
+# the Obstacles variants that no other run drives. 256 envs, not the 1,024
+# at which bench.py times the family: at 1024 x 1 their runs took 120 s (85 s
+# of it host layouts) of the script's 1,005 s on one H100 machine, against a
+# limit of 1,200 s; ObstaclesHard's run at 1024 x 1 already takes the
+# family's widest layouts through the card
+VARIANT_ENVS = 256
+OBSTACLES_VARIANTS = {name: f"{name.lower()}_{VARIANT_ENVS}x1" for name in (
+    "ObstaclesMedium", "ObstaclesSteps", "ObstaclesWalls", "ObstaclesLava")}
+
+# the training runs at the width of rl/runs.py's configurations, hidden 512,
+# 2-layer GRU, rollout 32 (rl.train's defaults): Collect 512 x 2; four agents
+# per env (megaverse_4ag) with team-spirit annealing over two updates' env
+# steps; multitask (megaverse_multitask8: the Megaverse-8, 1,024 envs each,
+# one update per task, round-robin)
+TRAIN_RUN = dict(env="Collect", num_envs=512, agents=2, updates=3)
+TRAIN_4AG = dict(env="TowerBuilding", num_envs=256, agents=4, updates=3)
+MULTITASK = dict(env="multitask_megaverse8", num_envs=1024, agents=1, updates=8)
+ROLLOUT = 32
+ENJOY_STEPS = 20
 
 
 def free_camera_view(env):
@@ -248,7 +281,17 @@ def update_check_setup(dev, model_dtype, inputs):
     return learner, ls, batch
 
 
+_LAST_PHASE_LINE = [time.perf_counter()]
+
+
 def emit(obj) -> None:
+    """Print one JSON line. A phase line also gets `wall_seconds`: the host
+    seconds since the previous phase line (the script's start for the
+    first), i.e. what the work it reports took of the script's time."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj = dict(obj, wall_seconds=now - _LAST_PHASE_LINE[0])
+        _LAST_PHASE_LINE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -768,11 +811,11 @@ class Smoke:
 
     def main_path(self):
         from megaverse_tpu_torch.env import UNCULLED, render_tables
-        tower = self.drive("tower_1024x1", "TowerBuilding", 1024, 1, 64, 3, keep=True)
+        tower = self.bench_main()
         empty = self.drive("empty_4096x1", "Empty", 4096, 1, 64, 2, keep=True)
         with ModeEnv(MEGAVERSE_NO_CLUSTER_CULL="1"):
             self.drive_mode("tower_1024x1_unculled", "TowerBuilding", tower, "render_b1")
-        collect = self.drive("collect_1024x1", "Collect", 1024, 1, 64, 3, keep=True)
+        collect = self.drive("collect_1024x1", "Collect", 1024, 1, 64, 2, keep=True)
         # The other forms at the same width, on the Collect env just driven
         # (a new env per form would generate 2,048 more layouts on the host
         # each): one chunk of 16 steps in each mode, its launch counts zeroed
@@ -788,7 +831,7 @@ class Smoke:
         # render size classes and the free camera on the same env
         self.classes_main("collect_1024x1_classes", collect)
         self.free_camera_main("collect_1024x1_free_camera", collect)
-        hard = self.drive("obstacleshard_1024x1", "ObstaclesHard", 1024, 1, 64, 3,
+        hard = self.drive("obstacleshard_1024x1", "ObstaclesHard", 1024, 1, 64, 2,
                           keep=True)
         # Four agents per env (the per-agent passes of the stacking component).
         # TowerBuilding episodes last episodeLengthSec + 4 s per movable box
@@ -822,7 +865,7 @@ class Smoke:
         # episodes (60 steps; HexMemory's last episodeLengthSec + 3 s per
         # good object): 8 chunks of 24 steps (overlapped refill) see envs
         # finish, restart from the layout buffer and get refilled.
-        hex_envs = {name: self.drive(label, name, 1024, 1, 64, 3, keep=True)
+        hex_envs = {name: self.drive(label, name, 1024, 1, 64, 2, keep=True)
                     for name, label in HEX_SCENES.items()}
         self.drive("hexexplore_256x2_short_episodes", "HexExplore", 256, 2, 24, 8,
                    params={"episodeLengthSec": 4.0}, expect_refill=True)
@@ -849,6 +892,28 @@ class Smoke:
                          env.scenario.cfg.obs_height, tabs["ui_indicators"])
             self.pvs_check(f"{name}_1024x1_main_path_state", env)
         return tower, collect, {**new_envs, **hex_envs}
+
+    def obstacles_variants(self) -> dict:
+        """The Obstacles variants of OBSTACLES_VARIANTS at VARIANT_ENVS x 1
+        under the default mode (B2): reset + 2 chunks of 64 + flush each, as
+        `drive`; then, at the state each run ends on, every form (tiled and
+        merged) exactly equal to B1 and each within the tolerance of its
+        own plain version, and B2 timed there. Each env is dropped before
+        the next is made (a 1024-env Obstacles state and its next layouts
+        take gigabytes). Returns {scenario: (B2's case times, meta)}."""
+        from megaverse_tpu_torch.env import UNCULLED, render_tables
+        out = {}
+        for name, label in OBSTACLES_VARIANTS.items():
+            env = self.drive(label, name, VARIANT_ENVS, 1, 64, 2, keep=True)
+            tabs = render_tables(env.scenario, env.state, bucket=env._bucket, mode=UNCULLED)
+            self.compare(f"{name}_{VARIANT_ENVS}x1_main_path_state", tabs["cams"],
+                         tabs["prims"], env.scenario.cfg.obs_height, tabs["ui_indicators"])
+            cases, meta = self.time_forms(env, ("b2",))
+            emit({"phase": "kernel_times", "scenario": name, **meta, "cases": cases})
+            out[name] = (cases, meta)
+            del env, tabs
+            torch.cuda.empty_cache()
+        return out
 
     # ------------------------------------------------------------- phase 4
     def train_update_check(self) -> None:
@@ -909,82 +974,193 @@ class Smoke:
                 raise AssertionError(f"train update {dtype}: card vs CPU loss {loss_err}, "
                                      f"grads {g_err}, params {p_err} ({share} past {tol_param})")
 
-    def train_path(self) -> None:
-        """`rl.train.main` on Collect 512 x 2 at the model's full width for
-        3 updates of rollout 32, then `rl.enjoy.main` on its checkpoint."""
+    def train_run(self, label, run, extra=(), observer=None):
+        """`rl.train.main` on `run` (env, num_envs, agents, updates) at the
+        model's full width, rollout ROLLOUT, seed 42, into a temporary
+        directory, with the launch counts zeroed before and read after:
+        B2 launches == updates * ROLLOUT + one initial render per task and
+        no other form, every task's metrics finite, the parameters moved
+        from the learner's init, `updates` updates and the checkpoint at
+        updates * ROLLOUT * num_envs env steps. Returns (summary, its line
+        for the output, the checkpoint's path, the directory); the caller
+        removes the directory."""
         import tempfile
 
         from megaverse_tpu_torch.convert import actor_critic_from_flax
         from megaverse_tpu_torch.models.actor_critic import ActorCritic
-        from megaverse_tpu_torch.rl import enjoy, train
+        from megaverse_tpu_torch.rl import train
         from megaverse_tpu_torch.rl.checkpoint import load_checkpoint
         RC = self.RC
-        envs, agents, rollout, updates, seed = 512, 2, 32, 3, 42
-        with tempfile.TemporaryDirectory() as tmp:
-            argv = ["--env", "Collect", "--num_envs", str(envs),
-                    "--num_agents_per_env", str(agents),
-                    "--train_for_env_steps", str(updates * rollout * envs),
-                    "--seed", str(seed), "--train_dir", tmp]
-            torch.cuda.synchronize()
-            RC.reset_launch_counts()
-            t0 = time.perf_counter()
-            if train.main(argv) != 0:
-                raise AssertionError("rl.train.main did not return 0")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = dict(RC.LAUNCHES)
-            out_dir = os.path.join(tmp, "default")
-            with open(os.path.join(out_dir, "train_summary.json")) as f:
-                summary = json.load(f)
-            ckpt_path = os.path.join(out_dir, "checkpoint.pkl")
-            ckpt = load_checkpoint(ckpt_path)
-            # the parameters the trainer started from: the learner's init
-            # (flax's initializers from the task's seed, on the card)
-            start = ActorCritic().to(self.dev)
-            start.reset_parameters(torch.Generator(self.dev).manual_seed(seed))
-            trained = actor_critic_from_flax(ckpt["params"])
-            moved = max((trained[k] - v.cpu()).abs().max().item()
-                        for k, v in start.state_dict().items())
-            m = summary["metrics"]
-            emit({"phase": "train", "argv": argv[:-2], "updates": summary["updates"],
-                  "env_steps": summary["env_steps"],
-                  "env_steps_per_s": summary["env_steps_per_s"],
-                  "samples_per_s": summary["samples_per_s"],
-                  "rollout_ms": summary["rollout_ms"], "update_ms": summary["update_ms"],
-                  "setup_seconds": summary["setup_seconds"], "train_seconds": summary["seconds"],
-                  "wall_seconds": wall,
-                  "peak_device_memory_bytes": summary["peak_device_memory_bytes"],
-                  "launches": counts, "loss": m["loss"], "entropy": m["entropy"],
-                  "reward_mean": m["reward_mean"], "params_moved": moved,
-                  "checkpoint_steps": ckpt["steps"], "gpu": self.smi,
-                  "note": "first reading, not a claim"})
-            want = updates * rollout + 1
-            for k, n in counts.items():
-                if n != (want if k == "render_b2" else 0):
-                    raise AssertionError(f"train: launches {counts}, expected {want} of "
-                                         "render_b2 and no other")
-                self.launches[k] += n
-            if not all(np.isfinite(v) for v in m.values()) or moved <= 0:
-                raise AssertionError(f"train: metrics {m}, parameters moved {moved}")
-            if summary["updates"] != updates or ckpt["steps"] != updates * rollout * envs:
-                raise AssertionError(f"train: {summary['updates']} updates, checkpoint at "
-                                     f"{ckpt['steps']} steps")
-            steps = 20
-            RC.reset_launch_counts()
-            t0 = time.perf_counter()
-            if enjoy.main(["--env", "Collect", "--num_agents_per_env", str(agents),
-                           "--checkpoint", ckpt_path, "--episodes", "1",
-                           "--max_steps", str(steps)]) != 0:
-                raise AssertionError("rl.enjoy.main did not return 0")
-            torch.cuda.synchronize()
-            counts = dict(RC.LAUNCHES)
-            emit({"phase": "enjoy", "steps": steps, "launches": counts,
-                  "seconds": time.perf_counter() - t0})
-            for k, n in counts.items():
-                if n != (steps + 1 if k == "render_b2" else 0):
-                    raise AssertionError(f"enjoy: launches {counts}, expected {steps + 1} "
-                                         "of render_b2 and no other")
-                self.launches[k] += n
+        seed = 42
+        tmp = tempfile.mkdtemp()
+        argv = ["--env", run["env"], "--num_envs", str(run["num_envs"]),
+                "--num_agents_per_env", str(run["agents"]), "--rollout", str(ROLLOUT),
+                "--train_for_env_steps", str(run["updates"] * ROLLOUT * run["num_envs"]),
+                "--seed", str(seed), *extra, "--train_dir", tmp]
+        torch.cuda.synchronize()
+        memory_before = torch.cuda.memory_allocated(self.dev)
+        RC.reset_launch_counts()
+        t0 = time.perf_counter()
+        if train.main(argv, observer=observer) != 0:
+            raise AssertionError(f"{label}: rl.train.main did not return 0")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(RC.LAUNCHES)
+        out_dir = os.path.join(tmp, "default")
+        with open(os.path.join(out_dir, "train_summary.json")) as f:
+            summary = json.load(f)
+        ckpt_path = os.path.join(out_dir, "checkpoint.pkl")
+        ckpt = load_checkpoint(ckpt_path)
+        # the parameters the trainer started from: the first task's learner
+        # init (flax's initializers from the task's seed, on the card)
+        start = ActorCritic().to(self.dev)
+        start.reset_parameters(torch.Generator(self.dev).manual_seed(seed))
+        trained = actor_critic_from_flax(ckpt["params"])
+        moved = max((trained[k] - v.cpu()).abs().max().item()
+                    for k, v in start.state_dict().items())
+        m = summary["metrics"]
+        line = {"phase": label, "argv": argv[:-2], "tasks": summary["tasks"],
+                "updates": summary["updates"], "env_steps": summary["env_steps"],
+                "env_steps_per_s": summary["env_steps_per_s"],
+                "samples_per_s": summary["samples_per_s"],
+                "rollout_ms": summary["rollout_ms"], "update_ms": summary["update_ms"],
+                "setup_seconds": summary["setup_seconds"],
+                "layout_seconds": summary["layout_seconds"],
+                "train_seconds": summary["seconds"], "main_seconds": wall,
+                # the script's own tensors (the main path's envs) before the run
+                "device_memory_before_bytes": memory_before,
+                "device_memory_after_setup_bytes": summary["device_memory_after_setup_bytes"],
+                "setup_peak_device_memory_bytes": summary["setup_peak_device_memory_bytes"],
+                "peak_device_memory_bytes": summary["peak_device_memory_bytes"],
+                "launches": counts, "loss": m["loss"], "entropy": m["entropy"],
+                "reward_mean": m["reward_mean"], "params_moved": moved,
+                "checkpoint_steps": ckpt["steps"], "gpu": self.smi,
+                "note": "first reading, not a claim"}
+        want = run["updates"] * ROLLOUT + len(summary["tasks"])
+        for k, n in counts.items():
+            if n != (want if k == "render_b2" else 0):
+                raise AssertionError(f"{label}: launches {counts}, expected {want} of "
+                                     "render_b2 and no other")
+            self.launches[k] += n
+        metrics = [m, *summary["task_metrics"].values()]
+        if (not all(np.isfinite(v) for mm in metrics for v in mm.values()) or moved <= 0
+                or set(summary["task_metrics"]) != set(summary["tasks"])):
+            raise AssertionError(f"{label}: metrics {summary['task_metrics']}, parameters "
+                                 f"moved {moved}")
+        if (summary["updates"] != run["updates"]
+                or ckpt["steps"] != run["updates"] * ROLLOUT * run["num_envs"]):
+            raise AssertionError(f"{label}: {summary['updates']} updates, checkpoint at "
+                                 f"{ckpt['steps']} steps")
+        return summary, line, ckpt_path, tmp
+
+    def enjoy_run(self, label, run, ckpt_path) -> None:
+        """`rl.enjoy.main` plays the checkpoint on `run`'s scenario and
+        agents for ENJOY_STEPS steps: B2 launches == steps + 1, no other."""
+        from megaverse_tpu_torch.rl import enjoy
+        RC = self.RC
+        torch.cuda.synchronize()
+        RC.reset_launch_counts()
+        t0 = time.perf_counter()
+        if enjoy.main(["--env", run["env"], "--num_agents_per_env", str(run["agents"]),
+                       "--checkpoint", ckpt_path, "--episodes", "1",
+                       "--max_steps", str(ENJOY_STEPS)]) != 0:
+            raise AssertionError(f"{label}: rl.enjoy.main did not return 0")
+        torch.cuda.synchronize()
+        counts = dict(RC.LAUNCHES)
+        emit({"phase": label, "env": run["env"], "agents": run["agents"],
+              "steps": ENJOY_STEPS, "launches": counts, "seconds": time.perf_counter() - t0})
+        for k, n in counts.items():
+            if n != (ENJOY_STEPS + 1 if k == "render_b2" else 0):
+                raise AssertionError(f"{label}: launches {counts}, expected "
+                                     f"{ENJOY_STEPS + 1} of render_b2 and no other")
+            self.launches[k] += n
+
+    def train_path(self) -> None:
+        """`rl.train.main` on Collect 512 x 2 (TRAIN_RUN) for 3 updates, then
+        `rl.enjoy.main` on its checkpoint."""
+        import shutil
+        _, line, ckpt_path, tmp = self.train_run("train", TRAIN_RUN)
+        emit(line)
+        try:
+            self.enjoy_run("enjoy", TRAIN_RUN, ckpt_path)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def train_4ag(self) -> None:
+        """Four agents per env (TRAIN_4AG, megaverse_4ag's width) with
+        team-spirit annealing over two updates' env steps: after every
+        update the shaping column equals min(1, steps done / max steps), the
+        reference's formula (megaverse_tpu/rl/train.py:326-330); then
+        `rl.enjoy.main` plays the checkpoint with four agents."""
+        import shutil
+        run = TRAIN_4AG
+        per_update = ROLLOUT * run["num_envs"]
+        max_steps = 2 * per_update
+        column = []
+
+        def observer(it, tasks, metrics):
+            task = tasks[0]
+            col = task.shaping[:, :, task.spirit_col]
+            column.append(float(col[0, 0]))
+            if it and not bool((col == min(1.0, it * per_update / max_steps)).all()):
+                raise AssertionError(f"train_4ag: team spirit {col.unique().tolist()} after "
+                                     f"update {it}, expected "
+                                     f"{min(1.0, it * per_update / max_steps)}")
+
+        _, line, ckpt_path, tmp = self.train_run(
+            "train_4ag", run, observer=observer,
+            extra=("--megaverse_increase_team_spirit", "1",
+                   "--megaverse_max_team_spirit_steps", str(max_steps)))
+        emit(dict(line, max_team_spirit_steps=max_steps, team_spirit_after_update=column))
+        try:
+            self.enjoy_run("enjoy_4ag", run, ckpt_path)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    def train_multitask(self) -> None:
+        """Multitask training (MULTITASK, megaverse_multitask8's width: the
+        eight Megaverse-8 tasks x 1,024 envs, one shared policy and Adam
+        state) for one update per task: besides `train_run`'s checks, the
+        tasks run in gym_env.MEGAVERSE8 order, and each task's envs advance
+        only on its own turn, by ROLLOUT frames (an env that reset during
+        the rollout restarts its count: fewer than ROLLOUT)."""
+        import shutil
+
+        from megaverse_tpu_torch.gym_env import MEGAVERSE8
+        run = MULTITASK
+        frames = {}
+        stepped = []
+
+        def observer(it, tasks, metrics):
+            now = {t.name: t.ls.env_state.num_frames.cpu() for t in tasks}
+            if it:
+                k = (it - 1) % len(tasks)
+                stepped.append(tasks[k].name)
+                for i, t in enumerate(tasks):
+                    old, new = frames[t.name], now[t.name]
+                    if i != k and not torch.equal(old, new):
+                        raise AssertionError(f"train_multitask: {t.name} advanced on "
+                                             f"{tasks[k].name}'s turn")
+                    if i == k and not (((new == old + ROLLOUT) | (new < ROLLOUT)).all()
+                                       and bool((new == old + ROLLOUT).any())):
+                        raise AssertionError(f"train_multitask: {t.name}'s frames went "
+                                             f"{old.tolist()[:8]} -> {new.tolist()[:8]}")
+            frames.update(now)
+
+        summary, line, _, tmp = self.train_run("train_multitask", run, observer=observer)
+        shutil.rmtree(tmp, ignore_errors=True)
+        n = len(summary["tasks"])
+        per_task = {name: {"rollout_ms": summary["rollout_ms"][i::n],
+                           "update_ms": summary["update_ms"][i::n],
+                           "loss": summary["task_metrics"][name]["loss"],
+                           "entropy": summary["task_metrics"][name]["entropy"],
+                           "reward_mean": summary["task_metrics"][name]["reward_mean"]}
+                    for i, name in enumerate(summary["tasks"])}
+        emit(dict(line, per_task=per_task, stepped=stepped))
+        if summary["tasks"] != list(MEGAVERSE8) or stepped != list(MEGAVERSE8) * (
+                run["updates"] // n):
+            raise AssertionError(f"train_multitask: tasks {summary['tasks']}, stepped "
+                                 f"{stepped}")
 
     # ------------------------------------------------------------- phase 6
     def parallel_world_one(self) -> None:
@@ -1076,40 +1252,55 @@ class Smoke:
               "ranks_seconds": ranks_seconds, "gpu": self.smi,
               "note": "first reading, not a claim; two ranks share one card"})
 
-    # ------------------------------------------------------------- phase 7
-    def bench(self) -> None:
-        """bench_torch.bench_scenario at BENCH_RUN, with the launch counts
-        zeroed before and read after; prints bench.py's line for the run."""
+    # ------------------------------------------------------------- phase 3
+    def bench_main(self):
+        """The main path's TowerBuilding 1024 x 1 run through
+        bench_torch.bench_scenario at BENCH_RUN, the env kept, with the
+        launch counts zeroed before and read after; prints bench.py's line
+        for the run. B2 launches == 1 reset + every step and no other form,
+        the final state finite, the envs' last frames not all alike, obs/s
+        positive."""
         import bench_torch
         RC = self.RC
         run = BENCH_RUN
+        label = "tower_1024x1"
         torch.cuda.synchronize()
         RC.reset_launch_counts()
         t0 = time.perf_counter()
         res = bench_torch.bench_scenario(run["scenario"], run["num_envs"], run["num_agents"],
-                                         chunk=run["chunk"], chunks=run["chunks"])
+                                         chunk=run["chunk"], chunks=run["chunks"],
+                                         keep_env=True)
         seconds = time.perf_counter() - t0
         counts = dict(RC.LAUNCHES)
+        env = res.env
         bench_torch.emit(run["scenario"], run["num_envs"], res.obs_per_sec,
                          bench_torch.BASELINE_FPS.get(run["scenario"].lower(),
                                                       bench_torch.BASELINE_EMPTY_FPS))
         steps = run["chunk"] * (bench_torch.WARMUP_CHUNKS + run["chunks"])
-        emit({"phase": "bench", **run, "launches": counts, "obs_per_sec": res.obs_per_sec,
+        emit({"phase": "main_path", "run": label, "through": "bench_torch.bench_scenario",
+              **run, "warmup_chunks": bench_torch.WARMUP_CHUNKS, "steps": steps,
+              "launches": counts, "render_mode": vars(env.render_mode), "bucket": env._bucket,
+              "obs_per_sec": res.obs_per_sec, "ms_per_step": 1e3 * res.seconds / (
+                  run["chunk"] * run["chunks"]),
               "timed_obs": res.n_obs, "timed_seconds": res.seconds, "seconds": seconds,
+              "refills": env.num_refills, "refilled_envs": env.num_refilled_envs,
+              "layout_seconds_total": env.layout_seconds,
               "finite": res.finite, "gpu": self.smi, "note": "first reading, not a claim"})
         for k, n in counts.items():
             if n != (1 + steps if k == "render_b2" else 0):
-                raise AssertionError(f"bench: launches {counts}, expected {1 + steps} of "
+                raise AssertionError(f"{label}: launches {counts}, expected {1 + steps} of "
                                      "render_b2 and no other")
+            self.launches[k] += n
         if not res.finite:
-            raise AssertionError("bench: non-finite values in the final state")
+            raise AssertionError(f"{label}: non-finite values in the final state")
         if np.unique(res.checksums).size < 2:
-            raise AssertionError("bench: every env's last frame sums to the same value")
+            raise AssertionError(f"{label}: every env's last frame sums to the same value")
         if not res.obs_per_sec > 0:
-            raise AssertionError(f"bench: obs/s {res.obs_per_sec}")
-        self.launches["render_b2"] += counts["render_b2"]
+            raise AssertionError(f"{label}: obs/s {res.obs_per_sec}")
         self.launches_by_part["bench"] = counts["render_b2"]
-        self.obs_per_s["bench"] = res.obs_per_sec
+        self.obs_per_s[label] = res.obs_per_sec
+        env.close()
+        return env
 
     # ------------------------------------------------------------- phase 5
     def time_forms(self, env, cases_wanted):
@@ -1211,7 +1402,7 @@ class Smoke:
                 rows=int(prims.shape[1]))
         return out
 
-    def kernels_line(self, tower, collect, new_envs) -> None:
+    def kernels_line(self, tower, collect, new_envs, variants) -> None:
         free_camera = self.time_free_camera(collect)
         emit({"phase": "kernel_times", "scenario": "Collect", "free_camera": free_camera,
               "gpu": self.smi})
@@ -1231,6 +1422,8 @@ class Smoke:
             wanted = ("b2", "b2_pvs") if name in HEX_SCENES else ("b2",)
             at_new[name], meta = self.time_forms(env, wanted)
             emit({"phase": "kernel_times", "scenario": name, **meta, "cases": at_new[name]})
+        # and at the Obstacles variants' end states, timed after their runs
+        at_new.update({name: cases for name, (cases, _) in variants.items()})
         # one row per kernel form; B4 is read at the per-tile lists, B6 at the
         # merged bit-walk: the variants the main path ran (B6 over B3 beside it)
         rows = []
@@ -1285,11 +1478,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--phase", default="all",
-                    choices=["all", "kernels", "train", "parallel", "bench"],
+                    choices=["all", "kernels", "train", "parallel", "bench", "obstacles"],
                     help="'kernels' stops after the kernel-vs-plain comparison, "
-                         "'train' runs only the training path, 'parallel' only "
-                         "the data-parallel checks, 'bench' only the sampling "
-                         "benchmark's run (none of them prints the result line)")
+                         "'train' runs only the training paths, 'parallel' only "
+                         "the data-parallel checks, 'bench' only the TowerBuilding "
+                         "run through the sampling benchmark, 'obstacles' only the "
+                         "Obstacles variants' runs (none of them prints the result "
+                         "line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check only runs on the GPU",
@@ -1304,24 +1499,31 @@ def main() -> int:
     if args.phase == "train":
         smoke.train_update_check()
         smoke.train_path()
+        smoke.train_4ag()
+        smoke.train_multitask()
         return 0
     if args.phase == "parallel":
         smoke.parallel_world_one()
         smoke.parallel_two_ranks()
         return 0
     if args.phase == "bench":
-        smoke.bench()
+        smoke.bench_main()
+        return 0
+    if args.phase == "obstacles":
+        smoke.obstacles_variants()
         return 0
     smoke.kernels_vs_plain()
     if args.phase == "kernels":
         return 0
     tower, collect, new_envs = smoke.main_path()
-    smoke.bench()
+    variants = smoke.obstacles_variants()
     smoke.train_update_check()
     smoke.train_path()
+    smoke.train_4ag()
+    smoke.train_multitask()
     smoke.parallel_world_one()
     smoke.parallel_two_ranks()
-    smoke.kernels_line(tower, collect, new_envs)
+    smoke.kernels_line(tower, collect, new_envs, variants)
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smoke.smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -259,20 +259,10 @@ def row_cluster_mask(row_bits: torch.Tensor, keep, num_boxes: int,
     return rb.reshape(bsz, na, -1, RC.CLUSTER_K).any(dim=-1)
 
 
-def render_tables(scenario: Scenario, states, bucket: Optional[tuple] = None,
-                  mode: Optional[RenderMode] = None) -> dict:
-    """Everything `raycast_cuda.render_packed` takes for a batch of states, as
-    keyword arguments: cams, prims and the cull tables of the form that `mode`
-    selects (default: `RenderMode.from_env()`, i.e. the bit-walk unless the
-    environment says otherwise).
-
-    bucket=(max_boxes, max_props): slice the per-env box/prop tables to the
-    actual batch usage before building the table. Scenario capacities are
-    worst-case, so rendering only the live prefix keeps the tables short.
-    Correct because generation packs live rows first and padding rows are
-    never activated at runtime (pos/scale/flags mutate; type never does)."""
-    if mode is None:
-        mode = RenderMode.from_env()
+def prim_rows(scenario: Scenario, states, bucket: Optional[tuple] = None):
+    """The first stage of `render_tables`: (cams, prim table, the `keep`
+    slices of the prop rows the table holds, box rows). See render_tables for
+    `bucket`."""
     cfg = scenario.cfg
     segments = cfg.prop_segments
     box_lo, box_hi, box_color = states.box_lo, states.box_hi, states.box_color
@@ -309,23 +299,54 @@ def render_tables(scenario: Scenario, states, bucket: Optional[tuple] = None,
     cams = RC.build_cams(cfg, states.agents, remaining, states.last_reward)
     prims = RC.build_prim_table(cfg, box_lo, box_hi, box_color, props,
                                 states.agents, include_agent_rows=include_agents)
+    return cams, prims, keep, box_color.shape[1]
+
+
+def bitwalk_clusters(scenario: Scenario, states, prims: torch.Tensor, keep, num_boxes: int,
+                     pvs: bool = True):
+    """The bit-walk's (B2's) tables before its per-tile cull, from
+    `prim_rows`' output: (prims padded to whole superclusters, clusters with
+    their superclusters, the PVS cluster mask or None)."""
+    prims, clusters = RC.build_clusters(prims)
+    clusters, _ = RC.build_superclusters(clusters)
+    prims = RC.pad_prims_to_clusters(prims, clusters)
+    row_bits = scenario.render_row_mask(states) if pvs else None
+    cluster_mask = (None if row_bits is None else
+                    row_cluster_mask(row_bits, keep, num_boxes, prims.shape[1]))
+    return prims, clusters, cluster_mask
+
+
+def render_tables(scenario: Scenario, states, bucket: Optional[tuple] = None,
+                  mode: Optional[RenderMode] = None) -> dict:
+    """Everything `raycast_cuda.render_packed` takes for a batch of states, as
+    keyword arguments: cams, prims and the cull tables of the form that `mode`
+    selects (default: `RenderMode.from_env()`, i.e. the bit-walk unless the
+    environment says otherwise).
+
+    bucket=(max_boxes, max_props): slice the per-env box/prop tables to the
+    actual batch usage before building the table. Scenario capacities are
+    worst-case, so rendering only the live prefix keeps the tables short.
+    Correct because generation packs live rows first and padding rows are
+    never activated at runtime (pos/scale/flags mutate; type never does)."""
+    if mode is None:
+        mode = RenderMode.from_env()
+    cfg = scenario.cfg
+    cams, prims, keep, num_boxes = prim_rows(scenario, states, bucket)
     ui_ind = float(cfg.params.get(C.P_USE_UI_REWARD_INDICATORS, 0.0)) > 0
     height, width = cfg.obs_height, cfg.obs_width
     tables = dict(cams=cams, ui_indicators=ui_ind, merge_tiles=mode.merge_tiles)
     if not mode.cluster_cull:
         return dict(tables, prims=prims)
-    prims, clusters = RC.build_clusters(prims)
     if mode.mode == "bits":
         # Bit-walk prologue: plain elementwise tensor code plus one small sort.
-        clusters, _ = RC.build_superclusters(clusters)
-        prims = RC.pad_prims_to_clusters(prims, clusters)
-        row_bits = scenario.render_row_mask(states) if mode.pvs else None
-        cluster_mask = (None if row_bits is None else
-                        row_cluster_mask(row_bits, keep, box_color.shape[1], prims.shape[1]))
+        prims, clusters, cluster_mask = bitwalk_clusters(scenario, states, prims, keep,
+                                                         num_boxes, mode.pvs)
         sclist, clbits, scdist, cdist = RC.cull_bits(cams, clusters, height, width,
                                                      cluster_mask=cluster_mask)
         tables.update(sclist=sclist, clbits=clbits, scdist=scdist, cdist=cdist)
-    elif not mode.cluster_sort:
+        return dict(tables, prims=prims.contiguous(), clusters=clusters.contiguous())
+    prims, clusters = RC.build_clusters(prims)
+    if not mode.cluster_sort:
         pass                                    # clusters in table order
     elif not (mode.tile_cull and mode.early_exit):
         # per-agent front-to-back order (per-tile lists require the early-exit

@@ -33,11 +33,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -56,7 +57,8 @@ from megaverse_tpu_torch.parallel import (
 from megaverse_tpu_torch.rl.checkpoint import is_port_opt_state, load_checkpoint, save_checkpoint
 from megaverse_tpu_torch.rl.learner import Learner, TrainConfig, opt_state_from_numpy
 from megaverse_tpu_torch.scenarios import make_scenario
-from megaverse_tpu_torch.types import scene_to_device, stack_scenes, state_from_scene, tree_scatter
+from megaverse_tpu_torch.types import (scene_to_device, stack_scenes, state_from_scene,
+                                       tree_map, tree_scatter)
 from megaverse_tpu_torch.vector_env import refill_slot_rung
 
 
@@ -137,6 +139,117 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _initial_layouts(name: str, num_agents: int, seed: int, num_envs: int, ids):
+    """The layout streams of a task's envs `ids` (global indices of its
+    `num_envs`; one numpy generator per env, spawned from `seed`) and each
+    env's first two layouts, made on the host: (generators advanced past
+    them, first layouts, next layouts), the layouts stacked. Each env's
+    stream is its own, so any split of `ids` gives the same layouts."""
+    scenario = make_scenario(name, num_agents=num_agents)
+    ids = list(ids)
+    every = np.random.SeedSequence(seed).spawn(num_envs)
+    gens = [np.random.Generator(np.random.PCG64(every[i])) for i in ids]
+    first = [scenario.generate_checked(g) for g in gens]
+    following = [scenario.generate_checked(g) for g in gens]
+    return gens, stack_scenes(first), stack_scenes(following)
+
+
+# A leaf of at least this many bytes crosses from a setup worker as its
+# nonzeros alone (flat indices and values) where that halves its bytes: the
+# voxel grids (vterrain, vobj: ObstaclesHard's are 2 MB per env) are almost
+# empty, and a process pool's pipe moves a few hundred MB/s.
+_SPARSE_MIN_BYTES = 1 << 20
+
+
+def _sparse_pack(batch):
+    """A stacked host batch -> (the batch with its large, mostly-zero leaves
+    cut to length 0, one entry per leaf: (shape, flat indices, values) of a
+    cut leaf's nonzeros, None for the others)."""
+    entries = []
+
+    def pack(x):
+        flat = x.reshape(-1)
+        idx = np.flatnonzero(flat) if x.nbytes >= _SPARSE_MIN_BYTES else None
+        if idx is None or len(idx) * (idx.itemsize + x.itemsize) > x.nbytes // 2:
+            entries.append(None)
+            return x
+        entries.append((x.shape, idx, flat[idx]))
+        return x[:0]
+
+    return tree_map(pack, batch), entries
+
+
+def _sparse_unpack(batch, entries):
+    """_sparse_pack's inverse."""
+    it = iter(entries)
+
+    def unpack(x):
+        entry = next(it)
+        if entry is None:
+            return x
+        shape, idx, values = entry
+        out = np.zeros(shape, x.dtype)
+        out.reshape(-1)[idx] = values
+        return out
+
+    return tree_map(unpack, batch)
+
+
+def _initial_layouts_packed(name: str, num_agents: int, seed: int, num_envs: int, ids):
+    """_initial_layouts in a setup worker process, its layouts sparse-packed
+    for the way back."""
+    gens, first, following = _initial_layouts(name, num_agents, seed, num_envs, ids)
+    return gens, _sparse_pack(first), _sparse_pack(following)
+
+
+def _first_layouts(names, args, rank: int = 0, world_size: int = 1, workers=None):
+    """_initial_layouts of every task of `names` (task i seeded with
+    `args.seed + 1000 * i`) for this rank's envs. With `workers` above 1 (by
+    default one per CPU core when there is more than one task, else none)
+    they are made in that many worker processes, each task's envs split into
+    one slice per worker; the layouts and the generators' states equal the
+    serial path's."""
+    seeds = [args.seed + 1000 * i for i in range(len(names))]
+    agents = args.num_agents_per_env
+    if workers is None:
+        workers = len(os.sched_getaffinity(0)) if len(names) > 1 else 0
+    n = args.num_envs // world_size
+    ids = range(rank * n, (rank + 1) * n)
+    if workers <= 1:
+        return [_initial_layouts(name, agents, seed, args.num_envs, ids)
+                for name, seed in zip(names, seeds)]
+    from megaverse_tpu_torch.utils import native
+    native.have_native()    # built once here, not by every worker at once
+    slices = [s.tolist() for s in np.array_split(np.asarray(ids), workers) if len(s)]
+    # spawned, not forked: the parent may hold a CUDA context
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = [[pool.submit(_initial_layouts_packed, name, agents, seed, args.num_envs, s)
+                 for s in slices] for name, seed in zip(names, seeds)]
+        out = []
+        for task in jobs:
+            parts = [f.result() for f in task]
+            batches = [[_sparse_unpack(*p[k]) for p in parts] for k in (1, 2)]
+            out.append((sum((p[0] for p in parts), []),
+                        *(tree_map(lambda *xs: np.concatenate(xs), *b) for b in batches)))
+        return out
+
+
+def _make_tasks(names, args, cfg: TrainConfig, device: torch.device, rank: int = 0,
+                world_size: int = 1, workers=None):
+    """(one _Task per scenario of `names`, task i seeded with
+    `args.seed + 1000 * i`; the seconds their first layouts took). `workers`:
+    see _first_layouts."""
+    t0 = time.perf_counter()
+    initial = _first_layouts(names, args, rank, world_size, workers)
+    layout_seconds = time.perf_counter() - t0
+    tasks = []
+    while initial:      # each task's host layouts go once they are on the device
+        i = len(tasks)
+        tasks.append(_Task(names[i], args, cfg, args.seed + 1000 * i, device, rank, world_size,
+                           initial.pop(0)))
+    return tasks, layout_seconds
+
+
 class _Task:
     """One scenario's env batch, generators and learner state.
 
@@ -148,7 +261,7 @@ class _Task:
     """
 
     def __init__(self, name: str, args, cfg: TrainConfig, seed: int, device: torch.device,
-                 rank: int = 0, world_size: int = 1):
+                 rank: int = 0, world_size: int = 1, initial=None):
         self.name = name
         self.scenario = make_scenario(name, num_agents=args.num_agents_per_env)
         if args.num_envs % world_size:
@@ -163,13 +276,16 @@ class _Task:
         self._hw_boxes = 0
         self._hw_props = [0] * len(self._segments) if self._segments else 0
 
-        # each env's layout stream is keyed by its global index
-        ss = np.random.SeedSequence(seed)
-        self.gens = [np.random.Generator(np.random.PCG64(s))
-                     for s in ss.spawn(args.num_envs)[lo:lo + self.num_envs]]
-
-        first = self.gen_batch(range(self.num_envs))
-        self.next_scenes = self.gen_batch(range(self.num_envs))
+        # each env's layout stream is keyed by its global index; `initial`
+        # is what _initial_layouts returns for these envs (_first_layouts)
+        if initial is None:
+            initial = _initial_layouts(name, args.num_agents_per_env, seed, args.num_envs,
+                                       range(lo, lo + self.num_envs))
+        self.gens, first, following = initial
+        for batch in (first, following):
+            self._note_high_water(batch)
+        first = scene_to_device(first, device)
+        self.next_scenes = scene_to_device(following, device)
         # Render-table bucket (see env.render_batch): 1.5x headroom over the
         # initial high-water mark; rebuilt when a later layout exceeds it.
         self.bucket = self._bucket_for(margin=1.5)
@@ -213,26 +329,25 @@ class _Task:
             return any(n > b for n, b in zip(self._hw_props, self.bucket[1]))
         return self._hw_props > self.bucket[1]
 
-    def _note_high_water(self, scenes) -> None:
-        for sc in scenes:
-            self._hw_boxes = max(self._hw_boxes, int((np.asarray(sc.box_color) > 0).sum()))
-            types = np.asarray(sc.props.type)
-            if self._segments:
-                for i, (_, start, cap) in enumerate(self._segments):
-                    n = int((types[start:start + cap] != C.PROP_NONE).sum())
-                    self._hw_props[i] = max(self._hw_props[i], n)
-            else:
-                self._hw_props = max(self._hw_props, int((types != C.PROP_NONE).sum()))
+    def _note_high_water(self, batch) -> None:
+        """Raise the high-water marks of live box and prop rows to a stacked
+        host batch's."""
+        most = lambda live: int(live.sum(axis=1).max())
+        self._hw_boxes = max(self._hw_boxes, most(np.asarray(batch.box_color) > 0))
+        live = np.asarray(batch.props.type) != C.PROP_NONE
+        if self._segments:
+            for i, (_, start, cap) in enumerate(self._segments):
+                self._hw_props[i] = max(self._hw_props[i], most(live[:, start:start + cap]))
+        else:
+            self._hw_props = max(self._hw_props, most(live))
 
     def _generate(self, idx, pad_to: int = 0):
         """Layouts for envs `idx`, stacked on the host (no device calls: it
         also runs on the refill thread)."""
-        scenes = [self.scenario.generate_checked(self.gens[i]) for i in idx]
-        self._note_high_water(scenes)
-        return stack_scenes(scenes, pad_to=pad_to)
-
-    def gen_batch(self, idx):
-        return scene_to_device(self._generate(idx), self.device)
+        batch = stack_scenes([self.scenario.generate_checked(self.gens[i]) for i in idx],
+                             pad_to=pad_to)
+        self._note_high_water(batch)
+        return batch
 
     def refill(self) -> None:
         """Regenerate the buffered layouts of the envs that reset during the
@@ -291,11 +406,17 @@ def resolve_task_list(env_name: str):
     raise NotImplementedError(env_name)
 
 
-def main(argv=None):
+def main(argv=None, observer=None):
+    """Train as the command line says. `observer(it, tasks, metrics)`, if
+    given, is called once after setup (it 0, metrics None) and after every
+    update (`it` updates done, the last one on `tasks[(it - 1) % len(tasks)]`)
+    with the _Task list; it must not change them. Not with spawned ranks."""
     args = parse_args(argv)
     n = args.n_devices or 1
     launched = bool(os.environ.get("MEGAVERSE_COORDINATOR") or os.environ.get("MEGAVERSE_DIST"))
     if n > 1 and not launched:
+        if observer is not None:
+            raise ValueError("an observer needs the ranks in this process")
         if args.num_envs % n:
             raise ValueError(f"--num_envs {args.num_envs} does not divide over {n} devices")
         if torch.device(args.device).type == "cuda":
@@ -312,7 +433,7 @@ def main(argv=None):
         finally:
             init.unlink(missing_ok=True)
         return 0
-    return _run(args)
+    return _run(args, observer)
 
 
 def _rank_main(rank: int, world_size: int, argv) -> None:
@@ -323,7 +444,7 @@ def _rank_main(rank: int, world_size: int, argv) -> None:
         shutdown_distributed()
 
 
-def _run(args) -> int:
+def _run(args, observer=None) -> int:
     maybe_initialize_distributed(device=args.device)
     rank, world_size = world()
     if args.n_devices and world_size != args.n_devices:
@@ -346,20 +467,21 @@ def _run(args) -> int:
                       exploration_final=args.exploration_final,
                       total_env_steps=float(args.train_for_env_steps))
 
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t_setup = time.perf_counter()
-    names = resolve_task_list(args.env)
-    tasks = [_Task(n, args, cfg, args.seed + 1000 * i, device, rank, world_size)
-             for i, n in enumerate(names)]
+    tasks, layout_seconds = _make_tasks(resolve_task_list(args.env), args, cfg, device, rank,
+                                        world_size)
     try:
         return _train(args, cfg, tasks, device, num_envs, time.perf_counter() - t_setup,
-                      lead=rank == 0)
+                      lead=rank == 0, observer=observer, layout_seconds=layout_seconds)
     finally:
         for t in tasks:
             t.close()
 
 
 def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: float,
-           lead: bool = True):
+           lead: bool = True, observer=None, layout_seconds=None):
     """The update loop. `num_envs` is the global batch; `lead` (rank 0)
     prints, checkpoints and writes the summary."""
     log = print if lead else (lambda *a, **k: None)
@@ -390,10 +512,15 @@ def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: 
         log(f"resumed from {ckpt_path} at {steps_done:,} env steps", flush=True)
     last_save = steps_done
     start_steps = steps_done
+    memory_after_setup = setup_peak = None
     if device.type == "cuda":
+        memory_after_setup = torch.cuda.memory_allocated(device)
+        setup_peak = torch.cuda.max_memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
+    if observer is not None:
+        observer(0, tasks, None)
     rollout_ms, update_ms = [], []
-    metrics = {}
+    metrics, task_metrics = {}, {}
     t0 = time.perf_counter()
     it = 0
     while steps_done < total:
@@ -409,6 +536,7 @@ def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: 
         rollout_ms.append(1e3 * (t_mid - t_start))
         update_ms.append(1e3 * (time.perf_counter() - t_mid))
         task.ls = ls
+        task_metrics[task.name] = metrics
         params, opt_state = ls.params, ls.opt_state
         steps_done += cfg.rollout * num_envs
         it += 1
@@ -419,6 +547,8 @@ def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: 
             frac = min(1.0, steps_done / args.megaverse_max_team_spirit_steps)
             for t in tasks:
                 t.shaping[:, :, t.spirit_col] = frac
+        if observer is not None:
+            observer(it, tasks, metrics)
 
         if it % 10 == 0:
             m = {k: float(v) for k, v in metrics.items()}
@@ -449,13 +579,23 @@ def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: 
         "rollout": cfg.rollout, "hidden_size": cfg.hidden_size, "device": str(device),
         "updates": it, "env_steps": trained, "steps_done": steps_done,
         "setup_seconds": setup_seconds, "seconds": seconds,
+        # of setup: the tasks' first layouts, made on the host
+        "layout_seconds": layout_seconds,
         # env steps count every env once per tick; samples every agent
         "env_steps_per_s": trained / seconds if seconds > 0 else None,
         "samples_per_s": trained * agents / seconds if seconds > 0 else None,
+        # update it ran tasks[it % len(tasks)]
+        "tasks": [t.name for t in tasks],
         "rollout_ms": rollout_ms, "update_ms": update_ms,
+        "device_memory_after_setup_bytes": memory_after_setup,
+        "setup_peak_device_memory_bytes": setup_peak,
+        # of the update loop alone
         "peak_device_memory_bytes": (torch.cuda.max_memory_allocated(device)
                                      if device.type == "cuda" else None),
         "metrics": {k: float(v) for k, v in metrics.items()},
+        # each task's metrics at its last update
+        "task_metrics": {name: {k: float(v) for k, v in m.items()}
+                         for name, m in task_metrics.items()},
     }
     (out_dir / "train_summary.json").write_text(json.dumps(summary, indent=1))
     log(f"done: {steps_done:,} env steps in {seconds:.1f}s", flush=True)
