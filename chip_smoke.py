@@ -1,8 +1,9 @@
 """On-card smoke check of the PyTorch/CUDA port (megaverse_tpu_torch).
 
 Run `python3 chip_smoke.py` on a machine with one NVIDIA GPU (built for
-sm_90a, i.e. an H100). It builds the render kernel from
-megaverse_tpu_torch/csrc with nvcc, then
+sm_90a, i.e. an H100). It builds the render kernel and the deferred reset's
+masked-copy kernel from megaverse_tpu_torch/csrc with nvcc (one process per
+source, at once), then
 
   1. prints the machine (card, power limit, torch/CUDA/nvcc versions, build
      seconds);
@@ -65,11 +66,32 @@ megaverse_tpu_torch/csrc with nvcc, then
      states these runs end on (comparison launches are not counted; every
      form 0 levels from its plain version at the end states of Sokoban,
      Rearrange, BoxAGone and Football; B2 with the PVS mask equal to B1 at
-     the hex end states). Then ObstaclesMedium, ObstaclesSteps,
+     the hex end states). Every run steps through `VectorEnv`'s default
+     path: each tick replayed from its CUDA graph (megaverse_tpu_torch/
+     capture.py), the deferred reset through the masked-copy kernel where
+     the scenario takes it (12 of the 16 scenes): one masked copy per tick
+     there, none elsewhere. Then (3b) on the envs these runs end on: one
+     eager tick of each under torch.cuda.set_sync_debug_mode("error") (no
+     host synchronisation in a tick); on TowerBuilding, Collect,
+     ObstaclesHard and HexMemory 1024 x 1 (CAPTURE_SCENES) CAPTURE_TICKS
+     ticks from one snapshot eagerly (under the same sync check) and
+     captured, with forced time-outs, a refill into the layout buffer and a
+     larger render bucket (a re-capture) inside: obs, dones and every state
+     leaf bit for bit equal; then the step captured and eager in this call
+     (ms, obs/s, host ops and graph replays per step, device kernels per
+     step, captures, peak memory); on the Collect env one tick of each form
+     B1-B6 captured against eager the same way, and 4 ticks eager and
+     captured with CACHE_SIZES other free-camera frame sizes rendered before
+     a replay (the replay's cached render constants must stay its own);
+     the masked copy against its
+     plain version on ObstaclesHard's layout leaves with none, 8 and all
+     1,024 envs done, bit for bit, and timed. Then ObstaclesMedium, ObstaclesSteps,
      ObstaclesWalls and ObstaclesLava (OBSTACLES_VARIANTS) at VARIANT_ENVS x 1
      the same way (2 chunks), each held at its end state: every form equal
      to B1, each within the tolerance of its own plain version, B2 timed;
-  4. the training path (megaverse_tpu_torch.rl), at the full width of the
+  4. the training path (megaverse_tpu_torch.rl; the learner's rollout replays
+     the same tick graph, one masked copy per rollout step of a task that
+     defers its reset), at the full width of the
      repo's one model (hidden 512, 2-layer GRU, 72x128 observations): the
      learner's `_update_from_batch` on the card against the same update on
      the CPU from the same parameters, on a numpy-seeded batch (8 envs x 2
@@ -118,7 +140,9 @@ The phases run in the order 1, 2, 3, 4, 6, 5; every phase line carries
 `--phase kernels` stops after step 2, `--phase train` runs steps 1 and 4
 only, `--phase parallel` steps 1 and 6 only, `--phase bench` step 1 and
 step 3's TowerBuilding run, `--phase obstacles` step 1 and step 3's
-Obstacles variants (none of them prints the result line).
+Obstacles variants, `--phase capture` step 1 and step 3b on TowerBuilding
+and Collect 1024 x 1 driven for 2 chunks each (none of them prints the
+result line).
 
 Any failed check raises and the script exits non-zero. The last line of the
 output is {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -151,6 +175,10 @@ OPS_ROW_OTHER = 100
 OPS_PIXEL_FIXED = 150
 
 SOURCE = "megaverse_tpu_torch/csrc/render.cu"
+MASKED_COPY_SOURCE = "megaverse_tpu_torch/csrc/masked_copy.cu"
+# the deferred reset's masked copy replaces no TPU kernel: the reference's
+# apply_deferred_resets is plain JAX (a K-slot scatter under lax.cond)
+MASKED_COPY_REPLACES = "megaverse_tpu/env.py:168 (apply_deferred_resets; plain JAX, no TPU kernel)"
 # the reference kernel body and, per form, the lines of its traversal
 REPLACES = {
     "render_b1": "megaverse_tpu/ops/raycast_pallas.py:931",
@@ -162,6 +190,22 @@ REPLACES = {
 }
 TOL_FRACTION = 1e-4
 
+# The captured tick against the eager one (capture_check): the main path's
+# 1024 x 1 envs of these scenes after their runs, CAPTURE_TICKS ticks from
+# the same snapshot each way, with a refill into the layout buffer and a
+# larger render bucket (a re-capture) at tick CAPTURE_REFILL_AT; the first
+# CAPTURE_EARLY envs time out at the second tick, the next CAPTURE_EARLY
+# after the refill, from their refilled slots.
+CAPTURE_SCENES = ("TowerBuilding", "Collect", "ObstaclesHard", "HexMemory")
+CAPTURE_TICKS = 8
+CAPTURE_REFILL_AT = 4
+CAPTURE_EARLY = 16
+# envs done in the masked copy's timed case (about the resets per tick of
+# 1,024 ObstaclesHard envs, 90 s episodes at 15 Hz: 0.76, and their tail)
+MASKED_COPY_DONE = 8
+# free-camera frame sizes rendered between two replays of a captured tick,
+# each caching render constants of its own (constants_check)
+CACHE_SIZES = 20
 # scenarios with a 1024 x 1 main-path run whose end state B2 is timed at;
 # on the states of the first four every form is held 0 levels from its plain
 # version
@@ -219,6 +263,12 @@ TRAIN_4AG = dict(env="TowerBuilding", num_envs=256, agents=4, updates=3)
 MULTITASK = dict(env="multitask_megaverse8", num_envs=1024, agents=1, updates=8)
 ROLLOUT = 32
 ENJOY_STEPS = 20
+
+
+def form_counts(RC) -> dict:
+    """The render forms' launch counts (RC.LAUNCHES counts the masked copy
+    too)."""
+    return {k: RC.LAUNCHES[k] for k in RC.FORMS}
 
 
 def free_camera_view(env):
@@ -350,6 +400,27 @@ def time_cuda(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_graph(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over `reps` calls captured into one
+    CUDA graph and replayed (CUDA events): the host's cost of launching a
+    short kernel from Python stays out of the reading, as it does when the
+    tick's graph replays the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 class ModeEnv:
     """Set the render-mode environment variables for the duration of a block."""
 
@@ -371,9 +442,11 @@ class ModeEnv:
 
 class Smoke:
     def __init__(self):
+        from megaverse_tpu_torch.ops import masked_copy as MC
         from megaverse_tpu_torch.ops import raycast_cuda as RC
         from megaverse_tpu_torch.utils.synthetic import form_tables
         self.RC = RC
+        self.MC = MC
         self.form_tables = form_tables
         self.dev = torch.device("cuda", 0)
         self.smi = nvidia_smi_line()
@@ -384,6 +457,12 @@ class Smoke:
         self.launches_by_part = {}
         self.saw_unpadded_b5 = False
         self.saw_short_table = False
+        # the masked copy's launches on the main path, and its timings
+        self.mc_launches = 0
+        self.mc_row = None
+
+    def reset_counts(self) -> None:
+        self.RC.reset_launch_counts()
 
     # ------------------------------------------------------------- phase 1
     def machine(self) -> None:
@@ -395,17 +474,24 @@ class Smoke:
         t0 = time.perf_counter()
         have_native = native.have_native()
         native_seconds = time.perf_counter() - t0
+        # every kernel source built at once, one nvcc each
+        from concurrent.futures import ThreadPoolExecutor
         t0 = time.perf_counter()
-        RC.load_library()
+        with ThreadPoolExecutor(2) as pool:
+            for fut in [pool.submit(RC.load_library), pool.submit(self.MC.load_library)]:
+                fut.result()
         nvcc = subprocess.run([RC.BUILD_INFO["nvcc"], "--version"],
                               capture_output=True, text=True).stdout.strip().splitlines()
+        builds = {k: v for k, v in RC.BUILD_INFO.items() if k != "nvcc"}
         emit({"phase": "machine", "gpu": self.smi,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "nvcc": nvcc[-2] if len(nvcc) >= 2 else nvcc,
-              "build_seconds": RC.BUILD_INFO["seconds"],
+              "build_seconds": {k: v["seconds"] for k, v in builds.items()},
               "load_seconds": time.perf_counter() - t0,
               "native_library": have_native, "native_seconds": native_seconds,
-              "ptxas": ptxas_summary(RC.BUILD_INFO["log"] or "")})
+              "ptxas": ptxas_summary(builds.get("render", {}).get("log") or ""),
+              "ptxas_masked_copy": re.findall(r"Used \d+ registers[^\n]*",
+                                              builds.get("masked_copy", {}).get("log") or "")})
         if not have_native:
             raise AssertionError("the native host library (native/build.sh) did not "
                                  "build or load: hex layouts would take the python "
@@ -610,13 +696,13 @@ class Smoke:
         RC = self.RC
         eye, yaw, pitch = free_camera_view(env)
         torch.cuda.synchronize()
-        RC.reset_launch_counts()
+        self.reset_counts()
         t0 = time.perf_counter()
         images = [render_custom_camera(env.scenario, env.state, eye, yaw, pitch,
                                        width=w, height=h) for h, w in FREE_CAMERA_SIZES]
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = dict(RC.LAUNCHES)
+        counts = form_counts(RC)
         for (h, w), img in zip(FREE_CAMERA_SIZES, images):
             if img.dtype != torch.uint8 or tuple(img.shape) != (h, w, 3) \
                     or img.device != self.dev or torch.unique(img).numel() < 8:
@@ -667,12 +753,12 @@ class Smoke:
                                    10))
         pool = self.action_pool(env.num_envs, env.num_agents_per_env)
         torch.cuda.synchronize()
-        RC.reset_launch_counts()
+        self.reset_counts()
         t0 = time.perf_counter()
         obs, _, csums = env.step_many(pool, chunk)
         _ = int(csums[-1].item())
         seconds = time.perf_counter() - t0
-        counts = dict(RC.LAUNCHES)
+        counts = form_counts(RC)
         env.flush()
         torch.cuda.synchronize()
         env.set_render_classes(False)
@@ -685,7 +771,7 @@ class Smoke:
               "b2_ms_classes_on": sum(b2_on), "b2_ms_per_group": b2_on,
               "classed_equals_unclassed": True, "gpu": self.smi,
               "note": "first reading, not a claim; one chunk"})
-        self.check_run(label, env, counts, "render_b2", len(groups) * chunk, obs)
+        self.check_run(label, env, counts, "render_b2", len(groups) * chunk, obs, ticks=chunk)
         self.launches_by_part["classes"] = counts["render_b2"]
         self.obs_per_s[label] = rate
 
@@ -710,7 +796,7 @@ class Smoke:
         RC = self.RC
         env = VectorEnv(name, envs, agents, seed=42, params=params)
         pool = self.action_pool(envs, agents)
-        RC.reset_launch_counts()
+        self.reset_counts()
         t0 = time.perf_counter()
         obs = env.reset()
         torch.cuda.synchronize()
@@ -726,7 +812,7 @@ class Smoke:
             any_done |= torch.stack(dones).any(dim=0)
         env.flush()
         torch.cuda.synchronize()
-        counts = dict(RC.LAUNCHES)
+        counts = form_counts(RC)
         steps = chunk * chunks
         # a first reading: chunks after the first (the first pays one-off costs)
         timed = secs[1:] or secs
@@ -749,7 +835,7 @@ class Smoke:
               "layout_seconds_total": env.layout_seconds,
               "layouts_generated": 2 * envs + env.num_refilled_envs, **extra,
               "gpu": self.smi, "note": "first reading, not a claim"})
-        self.check_run(label, env, counts, form, 1 + steps, obs)
+        self.check_run(label, env, counts, form, 1 + steps, obs, ticks=steps)
         if expect_refill and (n_done < 1 or env.num_refilled_envs < 1):
             raise AssertionError(f"{label}: no auto-reset/refill happened "
                                  f"(done {n_done}, refilled {env.num_refilled_envs})")
@@ -757,15 +843,23 @@ class Smoke:
         env.close()
         return env if keep else None
 
-    def check_run(self, label, env, counts, form, expected, obs) -> None:
-        """`expected` launches of `form` and none of any other; packed,
-        non-constant observations; a finite state."""
+    def check_run(self, label, env, counts, form, expected, obs, ticks=None) -> None:
+        """`expected` launches of `form` and none of any other; with `ticks`,
+        one masked copy per tick where the scenario defers its reset and none
+        elsewhere; packed, non-constant observations; a finite state."""
+        from megaverse_tpu_torch.env import should_defer_reset
         from megaverse_tpu_torch.types import tree_leaves
         for k, n in counts.items():
             if n != (expected if k == form else 0):
                 raise AssertionError(f"{label}: launches {counts}, expected "
                                      f"{expected} of {form} and no other")
             self.launches[k] += n
+        if ticks is not None:
+            n = self.RC.LAUNCHES["masked_copy"]
+            want = ticks if should_defer_reset(env.scenario) else 0
+            if n != want:
+                raise AssertionError(f"{label}: {n} masked copies, expected {want}")
+            self.mc_launches += n
         shape = (env.num_envs, env.num_agents_per_env, 72, 128)
         if obs.dtype != torch.int32 or tuple(obs.shape) != shape:
             raise AssertionError(f"{label}: obs {obs.dtype} {tuple(obs.shape)}")
@@ -788,14 +882,14 @@ class Smoke:
         env.render_mode = RenderMode.from_env()
         pool = self.action_pool(env.num_envs, env.num_agents_per_env)
         torch.cuda.synchronize()
-        RC.reset_launch_counts()
+        self.reset_counts()
         t0 = time.perf_counter()
         obs, _, csums = env.step_many(pool, chunk)
         _ = int(csums[-1].item())
         seconds = time.perf_counter() - t0
         env.flush()
         torch.cuda.synchronize()
-        counts = dict(RC.LAUNCHES)
+        counts = form_counts(RC)
         mode = {k: v for k, v in vars(env.render_mode).items()}
         env.render_mode = own
         rate = env.num_envs * env.num_agents_per_env * chunk / seconds
@@ -806,7 +900,7 @@ class Smoke:
               "chunk_seconds": [seconds], "refills": env.num_refills,
               "gpu": self.smi, "note": "first reading, not a claim; one chunk "
                                        "(first call of the form included)"})
-        self.check_run(label, env, counts, form, chunk, obs)
+        self.check_run(label, env, counts, form, chunk, obs, ticks=chunk)
         self.obs_per_s[label] = rate
 
     def main_path(self):
@@ -891,6 +985,9 @@ class Smoke:
             self.compare(f"{name}_1024x1_main_path_state", tabs["cams"], tabs["prims"],
                          env.scenario.cfg.obs_height, tabs["ui_indicators"])
             self.pvs_check(f"{name}_1024x1_main_path_state", env)
+        # the captured tick against the eager one, on these envs (phase 3b)
+        self.capture_phase({"TowerBuilding": tower, "Empty": empty, "Collect": collect,
+                            "ObstaclesHard": hard, **new_envs, **hex_envs})
         return tower, collect, {**new_envs, **hex_envs}
 
     def obstacles_variants(self) -> dict:
@@ -999,13 +1096,13 @@ class Smoke:
                 "--seed", str(seed), *extra, "--train_dir", tmp]
         torch.cuda.synchronize()
         memory_before = torch.cuda.memory_allocated(self.dev)
-        RC.reset_launch_counts()
+        self.reset_counts()
         t0 = time.perf_counter()
         if train.main(argv, observer=observer) != 0:
             raise AssertionError(f"{label}: rl.train.main did not return 0")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(RC.LAUNCHES)
+        counts = form_counts(RC)
         out_dir = os.path.join(tmp, "default")
         with open(os.path.join(out_dir, "train_summary.json")) as f:
             summary = json.load(f)
@@ -1042,6 +1139,18 @@ class Smoke:
                 raise AssertionError(f"{label}: launches {counts}, expected {want} of "
                                      "render_b2 and no other")
             self.launches[k] += n
+        # one masked copy per rollout step of every task that defers its reset
+        from megaverse_tpu_torch.env import should_defer_reset
+        from megaverse_tpu_torch.scenarios import make_scenario
+        tasks = summary["tasks"]
+        defer = {n: should_defer_reset(make_scenario(n, num_agents=run["agents"]))
+                 for n in set(tasks)}
+        want_mc = sum(ROLLOUT for it in range(summary["updates"])
+                      if defer[tasks[it % len(tasks)]])
+        line["masked_copy_launches"] = self.RC.LAUNCHES["masked_copy"]
+        if line["masked_copy_launches"] != want_mc:
+            raise AssertionError(f"{label}: {line['masked_copy_launches']} masked copies, "
+                                 f"expected {want_mc}")
         metrics = [m, *summary["task_metrics"].values()]
         if (not all(np.isfinite(v) for mm in metrics for v in mm.values()) or moved <= 0
                 or set(summary["task_metrics"]) != set(summary["tasks"])):
@@ -1059,14 +1168,14 @@ class Smoke:
         from megaverse_tpu_torch.rl import enjoy
         RC = self.RC
         torch.cuda.synchronize()
-        RC.reset_launch_counts()
+        self.reset_counts()
         t0 = time.perf_counter()
         if enjoy.main(["--env", run["env"], "--num_agents_per_env", str(run["agents"]),
                        "--checkpoint", ckpt_path, "--episodes", "1",
                        "--max_steps", str(ENJOY_STEPS)]) != 0:
             raise AssertionError(f"{label}: rl.enjoy.main did not return 0")
         torch.cuda.synchronize()
-        counts = dict(RC.LAUNCHES)
+        counts = form_counts(RC)
         emit({"phase": label, "env": run["env"], "agents": run["agents"],
               "steps": ENJOY_STEPS, "launches": counts, "seconds": time.perf_counter() - t0})
         for k, n in counts.items():
@@ -1265,13 +1374,13 @@ class Smoke:
         run = BENCH_RUN
         label = "tower_1024x1"
         torch.cuda.synchronize()
-        RC.reset_launch_counts()
+        self.reset_counts()
         t0 = time.perf_counter()
         res = bench_torch.bench_scenario(run["scenario"], run["num_envs"], run["num_agents"],
                                          chunk=run["chunk"], chunks=run["chunks"],
                                          keep_env=True)
         seconds = time.perf_counter() - t0
-        counts = dict(RC.LAUNCHES)
+        counts = form_counts(RC)
         env = res.env
         bench_torch.emit(run["scenario"], run["num_envs"], res.obs_per_sec,
                          bench_torch.BASELINE_FPS.get(run["scenario"].lower(),
@@ -1291,6 +1400,10 @@ class Smoke:
                 raise AssertionError(f"{label}: launches {counts}, expected {1 + steps} of "
                                      "render_b2 and no other")
             self.launches[k] += n
+        if self.RC.LAUNCHES["masked_copy"] != steps:     # TowerBuilding defers its reset
+            raise AssertionError(f"{label}: {self.RC.LAUNCHES['masked_copy']} masked "
+                                 f"copies, expected {steps}")
+        self.mc_launches += steps
         if not res.finite:
             raise AssertionError(f"{label}: non-finite values in the final state")
         if np.unique(res.checksums).size < 2:
@@ -1301,6 +1414,344 @@ class Smoke:
         self.obs_per_s[label] = res.obs_per_sec
         env.close()
         return env
+
+    # ------------------------------------------------------------- phase 3b
+    @staticmethod
+    def snapshot(env) -> dict:
+        """Copies of what a tick reads and writes: the state, the layout
+        buffer, the render bucket."""
+        from megaverse_tpu_torch.types import tree_map
+        return dict(state=tree_map(torch.clone, env.state),
+                    next=tree_map(torch.clone, env.next_scenes), bucket=env._bucket)
+
+    def ticks_from(self, env, snap, capture, actions, refill=None, sync_check=False,
+                   interlude=None):
+        """Restore `snap` into the env's bound buffers, then tick through
+        `actions` (int32 [K, B, A] on the card) eagerly or captured (graphs
+        dropped first: the first tick of a key warms it, the next captures
+        it). `refill` = (tick, slot indices, layouts, bucket): at that tick
+        the layouts are scattered into the buffer in place and the bucket
+        set (a new graph key). With `sync_check` every eager tick runs under
+        set_sync_debug_mode("error"). `interlude` = (tick, fn): fn() runs
+        before that tick. Returns (obs per tick, dones per tick, the final
+        state, graphs captured)."""
+        from megaverse_tpu_torch.types import tree_copy_, tree_map, tree_scatter_
+        ticks = env._ticks
+        ticks.capture = capture
+        ticks.drop()
+        tree_copy_(env.state, snap["state"])
+        tree_copy_(env.next_scenes, snap["next"])
+        env._bucket = snap["bucket"]
+        captures = ticks.captures
+        obs_l, done_l = [], []
+        for t in range(actions.shape[0]):
+            if refill is not None and t == refill[0]:
+                tree_scatter_(env.next_scenes, refill[1], refill[2])
+                env._bucket = refill[3]
+            if interlude is not None and t == interlude[0]:
+                interlude[1]()
+            if sync_check:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                obs, _, done, _ = env._advance(actions[t])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            obs_l.append(obs.clone())
+            done_l.append(done.clone())
+        torch.cuda.synchronize()
+        ticks.capture = True
+        return obs_l, done_l, tree_map(torch.clone, env.state), ticks.captures - captures
+
+    def capture_check(self, label, env, ticks=CAPTURE_TICKS, refill=True, mode=None):
+        """`ticks` ticks of a driven env from one snapshot, eager (under
+        set_sync_debug_mode("error")) and then captured: every obs and done
+        of every tick and every leaf of the final state bit for bit equal;
+        with `refill`, the first CAPTURE_EARLY envs time out at the second
+        tick, layouts are scattered into the next CAPTURE_EARLY envs' slots
+        and the bucket grows at tick CAPTURE_REFILL_AT (two captures), and
+        those envs time out after it. `mode` renders with another form.
+        The env keeps the captured run's end state. Returns the line."""
+        from megaverse_tpu_torch.env import should_defer_reset
+        from megaverse_tpu_torch.types import tree_leaves
+        from megaverse_tpu_torch.vector_env import refill_slot_rung
+        own_mode = env.render_mode
+        if mode is not None:
+            env.render_mode = mode
+        env.flush()
+        torch.cuda.synchronize()
+        snap = self.snapshot(env)
+        dt = env.scenario.cfg.dt
+        n = CAPTURE_EARLY
+        lens, secs = snap["state"].episode_len_sec, snap["state"].episode_sec
+        plan = None
+        if refill:
+            secs[:n] = lens[:n] - 1.5 * dt
+            secs[n:2 * n] = lens[n:2 * n] - (CAPTURE_REFILL_AT + 2.5) * dt
+            idx = np.arange(n, 2 * n)
+            slots = refill_slot_rung(n, env.num_envs)
+            layouts = env._generate_batch(idx.tolist(), pad_to=slots)
+            slot_idx = np.concatenate([idx, np.full((slots - n,), env.num_envs)])
+            bucket = (snap["bucket"][0] + 8, snap["bucket"][1])
+            plan = (CAPTURE_REFILL_AT, slot_idx, layouts, bucket)
+        pool = torch.from_numpy(self.action_pool(env.num_envs, env.num_agents_per_env)
+                                [:ticks]).to(self.dev)
+        launches0 = dict(self.RC.LAUNCHES)
+        t0 = time.perf_counter()
+        eager = self.ticks_from(env, snap, False, pool, plan, sync_check=True)
+        eager_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        captured = self.ticks_from(env, snap, True, pool, plan)
+        captured_s = time.perf_counter() - t0
+        launches = {k: v - launches0[k] for k, v in self.RC.LAUNCHES.items()
+                    if v != launches0[k]}
+        env.render_mode = own_mode
+        for t in range(ticks):
+            if not torch.equal(eager[0][t], captured[0][t]):
+                raise AssertionError(f"{label}: tick {t}: captured obs differ from eager on "
+                                     f"{int((eager[0][t] != captured[0][t]).sum())} pixels")
+            if not torch.equal(eager[1][t], captured[1][t]):
+                raise AssertionError(f"{label}: tick {t}: captured dones differ")
+        for i, (a, b) in enumerate(zip(tree_leaves(eager[2]), tree_leaves(captured[2]))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: state leaf {i} differs after {ticks} ticks")
+        dones = [int(d.sum()) for d in captured[1]]
+        want_captures = 2 if refill else 1
+        if captured[3] != want_captures or eager[3] != 0:
+            raise AssertionError(f"{label}: {captured[3]} captures, expected {want_captures}")
+        if refill and (sum(dones[:CAPTURE_REFILL_AT]) < n or sum(dones[CAPTURE_REFILL_AT:]) < n):
+            raise AssertionError(f"{label}: dones per tick {dones}: the forced time-outs "
+                                 "did not happen")
+        mc = launches.get("masked_copy", 0)
+        if mc != (2 * ticks if should_defer_reset(env.scenario) else 0):
+            raise AssertionError(f"{label}: {mc} masked copies in 2 x {ticks} ticks")
+        line = {"phase": "capture_vs_eager", "run": label, "scenario": env.scenario.name,
+                "envs": env.num_envs, "agents": env.num_agents_per_env, "ticks": ticks,
+                "render_mode": vars(env.render_mode if mode is None else mode),
+                "refill_at": CAPTURE_REFILL_AT if refill else None, "dones_per_tick": dones,
+                "captures": captured[3], "launches_both_runs": launches,
+                "eager_seconds": eager_s, "captured_seconds": captured_s,
+                "equal": "obs, dones and every state leaf, bit for bit",
+                "eager_ticks_under_sync_debug_error": True, "gpu": self.smi}
+        emit(line)
+        return line
+
+    def constants_check(self, label, env, ticks=4, at=3) -> None:
+        """A replay reads the render's cached constants by address and never
+        calls their caches: `ticks` ticks from one snapshot, eager and then
+        captured (tick 0 warms, tick 1 captures, the rest replay), with
+        CACHE_SIZES other free-camera frame sizes rendered (their constants
+        and tile bounds cached) and the freed small blocks of the allocator
+        written over before tick `at`: obs, dones and every state leaf bit
+        for bit."""
+        from megaverse_tpu_torch.env import render_custom_camera
+        from megaverse_tpu_torch.types import tree_leaves
+        RC = self.RC
+        eye, yaw, pitch = free_camera_view(env)
+
+        def interlude():
+            for i in range(1, CACHE_SIZES + 1):
+                h, w = 40 + 8 * i, 96 + 32 * i
+                render_custom_camera(env.scenario, env.state, eye, yaw, pitch,
+                                     width=w, height=h)
+                RC._tile_dir_bounds_on(h, w, RC.TILE_H, RC.TILE_W, str(self.dev))
+            junk = [torch.full((n,), -1, dtype=torch.int32, device=self.dev)
+                    for n in range(128, 16384, 128)]
+            del junk
+
+        env.flush()
+        torch.cuda.synchronize()
+        snap = self.snapshot(env)
+        pool = torch.from_numpy(self.action_pool(env.num_envs, env.num_agents_per_env)
+                                [:ticks]).to(self.dev)
+        eager = self.ticks_from(env, snap, False, pool, interlude=(at, interlude))
+        captured = self.ticks_from(env, snap, True, pool, interlude=(at, interlude))
+        if captured[3] != 1:
+            raise AssertionError(f"{label}: {captured[3]} captures, expected 1")
+        for t in range(ticks):
+            if not (torch.equal(eager[0][t], captured[0][t])
+                    and torch.equal(eager[1][t], captured[1][t])):
+                raise AssertionError(f"{label}: tick {t}: the replay after {CACHE_SIZES} "
+                                     "other frame sizes differs from the eager tick")
+        for i, (a, b) in enumerate(zip(tree_leaves(eager[2]), tree_leaves(captured[2]))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: state leaf {i} differs after {ticks} ticks")
+        emit({"phase": "constants_outlive_other_sizes", "run": label,
+              "scenario": env.scenario.name, "envs": env.num_envs, "ticks": ticks,
+              "other_sizes_before_tick": at, "other_sizes": CACHE_SIZES,
+              "equal": "obs, dones and every state leaf, bit for bit", "gpu": self.smi})
+
+    def step_readings(self, label, env, chunk=16) -> None:
+        """The step captured and eager in this call, on a driven env: ms and
+        obs/s of a timed chunk each way (captured, eager, captured; each after
+        two warm chunks of 4; a refill that grows the render bucket inside a
+        timed chunk puts a warm tick and a capture in it), host
+        operations per step (aten ops dispatched, counted with a dispatch
+        mode over a chunk of 4, plus graph replays), device kernels per step
+        and busy ms per step (torch.profiler over a chunk of 4), graphs
+        captured, peak device memory."""
+        from torch.profiler import ProfilerActivity, profile
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Count(TorchDispatchMode):
+            n = 0
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                Count.n += 1
+                return func(*args, **(kwargs or {}))
+
+        pool = self.action_pool(env.num_envs, env.num_agents_per_env)
+        ticks = env._ticks
+        out = {"captured": [], "eager": []}
+        per_mode = {}
+        for capture in (True, False, True):
+            ticks.capture = capture
+            key = "captured" if capture else "eager"
+            for _ in range(2):          # warm (and capture) this key, and the next
+                _, _, cs = env.step_many(pool, 4)      # bucket a refill may bring
+                cs[-1].item()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, cs = env.step_many(pool, chunk)
+            cs[-1].item()
+            seconds = time.perf_counter() - t0
+            out[key].append(dict(ms_per_step=1e3 * seconds / chunk,
+                                 obs_per_sec=env.num_envs * env.num_agents_per_env * chunk
+                                 / seconds))
+            if key in per_mode:
+                continue
+            replays = ticks.replays
+            Count.n = 0
+            with Count():
+                _, _, cs = env.step_many(pool, 4)
+            cs[-1].item()
+            replays = ticks.replays - replays
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, _, cs = env.step_many(pool, 4)
+                cs[-1].item()
+                torch.cuda.synchronize()
+            kern = [k for k in prof.key_averages()
+                    if getattr(k, "device_type", None) == torch.autograd.DeviceType.CUDA]
+            busy = sum(float(getattr(k, "self_device_time_total", 0.0)) for k in kern)
+            per_mode[key] = dict(host_ops_per_step=Count.n / 4, replays_per_step=replays / 4,
+                                 device_kernels_per_step=sum(int(k.count) for k in kern) / 4
+                                 if kern else "not measured",
+                                 device_busy_ms_per_step=1e-3 * busy / 4
+                                 if kern else "not measured")
+        ticks.capture = True
+        env.flush()
+        emit({"phase": "step_captured_vs_eager", "run": label, "scenario": env.scenario.name,
+              "envs": env.num_envs, "agents": env.num_agents_per_env, "chunk": chunk,
+              "timed": out, "per_step": per_mode, "captures": ticks.captures,
+              "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+              "peak_device_memory_reserved_bytes": torch.cuda.max_memory_reserved(),
+              "gpu": self.smi, "note": "first reading, not a claim"})
+
+    def sync_free_tick(self, label, env) -> None:
+        """One eager tick of a driven env under set_sync_debug_mode("error"):
+        no host synchronisation anywhere in the step, its deferred reset or
+        its render."""
+        act = torch.from_numpy(self.action_pool(env.num_envs, env.num_agents_per_env)[0]
+                               ).to(self.dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            env._ticks.run(act, render=True, fmt=env.obs_format, bucket=env._bucket,
+                           mode=env.render_mode, eager=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        emit({"phase": "sync_free_tick", "run": label, "scenario": env.scenario.name,
+              "envs": env.num_envs, "sync_debug_mode": "error", "passed": True})
+
+    def masked_copy_check(self, label, env) -> None:
+        """The masked-copy kernel against its plain version on a driven env's
+        layout leaves (state <- next layouts) with none, MASKED_COPY_DONE and
+        all envs done: bit for bit; then both timed as replays of a graph of
+        their launches (`time_graph`: device time, as in the tick's graph),
+        with the bound (the done envs' rows read once and written once over
+        the card's memory rate)."""
+        from megaverse_tpu_torch.env import deferred_leaves
+        from megaverse_tpu_torch.types import tree_map
+        MC = self.MC
+        scen_fields = env.scenario.deferred_scen_fields
+        src = deferred_leaves(env.next_scenes, scen_fields)
+        base = [x.clone() for x in deferred_leaves(env.state, scen_fields)]
+        b = env.num_envs
+        rng = np.random.default_rng(0)
+        patterns = {"none": np.zeros(b, bool), "all": np.ones(b, bool)}
+        some = np.zeros(b, bool)
+        some[rng.choice(b, MASKED_COPY_DONE, replace=False)] = True
+        patterns[f"{MASKED_COPY_DONE}_done"] = some
+        row_bytes = MC.bytes_moved(src, 1) // 2
+        cases = {}
+        for name, mask in patterns.items():
+            done = torch.from_numpy(mask).to(self.dev)
+            got = [x.clone() for x in base]
+            want = [x.clone() for x in base]
+            MC.masked_copy_(got, src, done)
+            MC.masked_copy_plain_(want, src, done)
+            torch.cuda.synchronize()
+            err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+            for i, (g, w) in enumerate(zip(got, want)):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{label}: masked copy leaf {i} ({name} done) "
+                                         f"differs from its plain version (max {err})")
+            nb = MC.bytes_moved(src, int(mask.sum()))
+            cases[name] = dict(
+                envs_done=int(mask.sum()), bytes=nb, max_abs_err=err,
+                ms=time_graph(lambda: MC.masked_copy_(got, src, done), 20),
+                plain_ms=time_graph(lambda: MC.masked_copy_plain_(want, src, done), 3),
+                bound_ms=1e3 * nb / HBM_BYTES_PER_S, bound_by="bytes")
+            del got, want
+        main = cases[f"{MASKED_COPY_DONE}_done"]
+        self.mc_row = {"shape": f"{label}, {MASKED_COPY_DONE} of {b} envs done",
+                       "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+                       "ms": main["ms"], "plain_ms": main["plain_ms"],
+                       "bound_ms": main["bound_ms"], "bound_by": "bytes",
+                       "ms_all_done": cases["all"]["ms"],
+                       "plain_ms_all_done": cases["all"]["plain_ms"],
+                       "bound_ms_all_done": cases["all"]["bound_ms"],
+                       "ms_none_done": cases["none"]["ms"],
+                       "row_bytes_per_env": row_bytes, "leaves": len(src)}
+        emit({"phase": "masked_copy_vs_plain", "run": label, "scenario": env.scenario.name,
+              "envs": b, "leaves": len(src), "row_bytes_per_env": row_bytes,
+              "cases": cases, "equal": "bit for bit", "gpu": self.smi})
+        del base
+        torch.cuda.empty_cache()
+
+    def capture_phase(self, envs: dict) -> None:
+        """The captured tick against the eager one on the main path's 1024 x 1
+        envs of CAPTURE_SCENES (a refill and a re-capture inside), one tick
+        of every render form B1-B6 on the Collect env, a replay after
+        CACHE_SIZES other frame sizes on it, the step captured and
+        eager in this call on each, the masked copy against its plain
+        version on ObstaclesHard's layouts, and one eager tick of every
+        main-path env under set_sync_debug_mode("error")."""
+        from megaverse_tpu_torch.env import RenderMode
+        for name, env in envs.items():
+            self.sync_free_tick(f"{name.lower()}_1024x1", env)
+        for name in CAPTURE_SCENES:
+            if name not in envs:
+                continue
+            env = envs[name]
+            torch.cuda.reset_peak_memory_stats()
+            self.capture_check(f"{name.lower()}_1024x1", env)
+            self.step_readings(f"{name.lower()}_1024x1", env)
+        if "Collect" in envs:
+            forms = {"render_b1": RenderMode(cluster_cull=False), "render_b2": RenderMode(),
+                     "render_b3": RenderMode(mode="super", cluster_sort=False),
+                     "render_b4": RenderMode(mode="super", superclusters=False),
+                     "render_b5": RenderMode(mode="super"),
+                     "render_b6": RenderMode(merge_tiles=True)}
+            for form, mode in forms.items():
+                line = self.capture_check(f"collect_1024x1_{form}", envs["Collect"], ticks=2,
+                                          refill=False, mode=mode)
+                if line["launches_both_runs"].get(form) != 4:
+                    raise AssertionError(f"{form}: launches {line['launches_both_runs']}")
+        if "Collect" in envs:
+            self.constants_check("collect_1024x1", envs["Collect"])
+        hard = envs.get("ObstaclesHard") or envs.get("Collect")
+        self.masked_copy_check(f"{hard.scenario.name.lower()}_1024x1", hard)
 
     # ------------------------------------------------------------- phase 5
     def time_forms(self, env, cases_wanted):
@@ -1468,6 +1919,11 @@ class Smoke:
                     row.update({f"ms_over_{over}": at_collect[f"b6_over_{over}"]["ms"],
                                 f"bound_ms_over_{over}": at_collect[f"b6_over_{over}"]["bound_ms"]})
             rows.append(row)
+        # the deferred reset's masked copy (a kernel of the port, not of the
+        # TPU), timed on ObstaclesHard's layout leaves in phase 3b
+        rows.append({"name": "masked_copy", "route": "cuda", "source": MASKED_COPY_SOURCE,
+                     "replaces": MASKED_COPY_REPLACES, "launches": self.mc_launches,
+                     "library_ms": None, **self.mc_row})
         for r in rows:
             if r["launches"] < 1:
                 raise AssertionError(f"{r['name']} was never launched on the main path")
@@ -1478,13 +1934,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--phase", default="all",
-                    choices=["all", "kernels", "train", "parallel", "bench", "obstacles"],
+                    choices=["all", "kernels", "train", "parallel", "bench", "obstacles",
+                             "capture"],
                     help="'kernels' stops after the kernel-vs-plain comparison, "
                          "'train' runs only the training paths, 'parallel' only "
                          "the data-parallel checks, 'bench' only the TowerBuilding "
                          "run through the sampling benchmark, 'obstacles' only the "
-                         "Obstacles variants' runs (none of them prints the result "
-                         "line)")
+                         "Obstacles variants' runs, 'capture' the captured-vs-eager "
+                         "checks on two envs (none of them prints the result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check only runs on the GPU",
@@ -1511,6 +1968,11 @@ def main() -> int:
         return 0
     if args.phase == "obstacles":
         smoke.obstacles_variants()
+        return 0
+    if args.phase == "capture":
+        envs = {name: smoke.drive(f"{name.lower()}_1024x1", name, 1024, 1, 64, 2, keep=True)
+                for name in ("TowerBuilding", "Collect")}
+        smoke.capture_phase(envs)
         return 0
     smoke.kernels_vs_plain()
     if args.phase == "kernels":

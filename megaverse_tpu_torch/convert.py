@@ -46,7 +46,10 @@ def to_numpy_tree(obj) -> Any:
         return {name: to_numpy_tree(getattr(obj, name))
                 for name in obj.__dataclass_fields__}
     if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu().numpy()
+        # a copy: tensors of a live state change in place at every tick
+        # (`.cpu()` of a CUDA tensor is one already)
+        x = obj.detach().cpu().numpy()
+        return x.copy() if obj.device.type == "cpu" else x
     return np.asarray(obj)
 
 

@@ -17,6 +17,7 @@ from typing import Mapping, NamedTuple, Optional
 import torch
 
 from megaverse_tpu_torch import constants as C
+from megaverse_tpu_torch.ops import masked_copy as MC
 from megaverse_tpu_torch.ops import physics as P
 from megaverse_tpu_torch.ops import raycast_cuda as RC
 from megaverse_tpu_torch.scenarios.base import Scenario
@@ -27,8 +28,8 @@ from megaverse_tpu_torch.types import (
     SceneData,
     state_from_scene,
     tree_index,
+    tree_leaves,
     tree_map,
-    tree_scatter,
     tree_select,
 )
 
@@ -53,7 +54,12 @@ def env_step(
     defer_reset: bool = False,
 ) -> StepResult:
     """One tick of every env of the batch. No host synchronisation: every
-    data-dependent choice is a masked select."""
+    data-dependent choice is a masked select.
+
+    The tick advances the state's voxel grids (`vobj`, `cols`) IN PLACE, as
+    the reference's donated state does: `state` is consumed (pass a copy to
+    keep it). With `defer_reset` the layout-copy leaves of the returned state
+    are the input state's own tensors, for apply_deferred_resets to patch."""
     cfg = scenario.cfg
     dt = cfg.dt
     vlimit = cfg.param(C.P_VERTICAL_LOOK_LIMIT)
@@ -96,8 +102,9 @@ def env_step(
 
     # Masked auto-reset from the pre-generated layout. With defer_reset the
     # leaves that are PURE COPIES of the layout (grids, box/prop tables) are
-    # excluded from this per-env select; the caller patches them afterwards
-    # with apply_deferred_resets.
+    # excluded from this per-env select: they pass through as the state's own
+    # tensors, and the caller patches the done envs' rows afterwards with
+    # apply_deferred_resets.
     rng = state.rng + 1
     fresh = state_from_scene(next_scene, cfg.num_agents, rng)
     if defer_reset:
@@ -113,11 +120,10 @@ def env_step(
 
 
 def should_defer_reset(scenario) -> bool:
-    """Whether the K-slot deferred auto-reset could pay for a scenario: it
-    replaces the per-step full select of the layout-copy leaves with a sort +
-    gather/scatter, which only wins when those leaves are big. Estimates their
-    per-env footprint from static capacities (grids dominate); below 32 KB/env
-    the plain inline select is taken."""
+    """Whether a scenario takes the deferred auto-reset (the reference's
+    rule): its layout-copy leaves are big enough (grids dominate; above 32 KB
+    per env, estimated from static capacities) that copying only the done
+    envs' rows beats the per-step full select."""
     cfg = scenario.cfg
     x, y, z = cfg.grid.dims
     cells = x * y * z
@@ -131,50 +137,31 @@ def should_defer_reset(scenario) -> bool:
     return approx > 32 * 1024
 
 
-def reset_slot_count(num_envs: int, episode_len_sec: float) -> int:
-    """Slot budget for apply_deferred_resets. The K-slot gather/scatter moves
-    max_slots envs' full layouts EVERY step regardless of how many actually
-    finished, so oversized slots cost real bandwidth. Expected resets per step
-    are num_envs / episode_steps; 8x that covers the Poisson tail, and genuine
-    sync bursts (first-cycle timeouts) take the full-select branch."""
-    steps = max(1.0, float(episode_len_sec) * C.DEFAULT_FRAME_RATE)
-    expected = num_envs / steps
-    k = 4
-    while k < 8 * expected and k < 32:
-        k *= 2
-    return k
+def deferred_leaves(tree, scen_fields: tuple = ()) -> list:
+    """The layout-copy leaves of a state or of a SceneData, in a fixed
+    order: those of DEFERRED_RESET_FIELDS, then of the scenario fields
+    `scen_fields`."""
+    out = []
+    for f in DEFERRED_RESET_FIELDS:
+        out += tree_leaves(getattr(tree, f))
+    for k in scen_fields:
+        out += tree_leaves(getattr(tree.scen, k))
+    return out
 
 
-def apply_deferred_resets(state, next_scenes, done, max_slots: int = 32,
-                          scen_fields: tuple = ()):
+def apply_deferred_resets(state, next_scenes, done, scen_fields: tuple = ()):
     """Completion of env_step(defer_reset=True): copy the layout-copy leaves
-    (DEFERRED_RESET_FIELDS) from next_scenes into the state for done envs.
+    (DEFERRED_RESET_FIELDS and the scenario's `scen_fields`) of the done envs
+    from next_scenes INTO the state's tensors, and return the state.
 
-    When <= max_slots envs finished, a K-slot gather/scatter moves only those
-    envs' layouts; otherwise the full masked select runs. Bit-identical to the
-    inline select: the copied values are exactly state_from_scene's
-    passthrough of the scene fields. Choosing the branch reads the done count
-    on the host (one device-to-host sync), which is why `VectorEnv` does not
-    use this path inside `step_many` and takes the inline select instead."""
-    bsz = done.shape[0]
-    k = min(max_slots, bsz)
-    few = int(done.sum()) <= k
-    if few:
-        # ascending done indices, then `bsz` sentinels (dropped by the scatter)
-        ar = torch.arange(bsz, dtype=torch.long, device=done.device)
-        idx = torch.sort(torch.where(done, ar, torch.full_like(ar, bsz))).values[:k]
-        gidx = torch.clamp(idx, max=bsz - 1)      # gather-safe
-        op = lambda dst, src: tree_scatter(dst, idx, tree_index(src, gidx))
-    else:
-        op = lambda dst, src: tree_select(done, src, dst)
-
-    patched = {f: op(getattr(state, f), getattr(next_scenes, f))
-               for f in DEFERRED_RESET_FIELDS}
-    if scen_fields:
-        patched["scen"] = state.scen.replace(**{
-            k_: op(getattr(state.scen, k_), getattr(next_scenes.scen, k_))
-            for k_ in scen_fields})
-    return state.replace(**patched)
+    On a CUDA device one launch of the masked-copy kernel does it (the rows of
+    envs that did not finish are never read, and nothing is read on the
+    host); on the CPU its plain version, the inline select. Either way the
+    result equals env_step's inline select: the copied values are exactly
+    state_from_scene's passthrough of the scene fields."""
+    MC.masked_copy_(deferred_leaves(state, scen_fields),
+                    deferred_leaves(next_scenes, scen_fields), done)
+    return state
 
 
 class RenderView(NamedTuple):

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from megaverse_tpu_torch import constants as C
-from megaverse_tpu_torch.types import GridConfig
+from megaverse_tpu_torch.types import GridConfig, device_const
 
 # Keeps AABBs strictly inside voxel cells when touching boundaries (standing
 # exactly on a floor is not a horizontal collision with it).
@@ -32,11 +32,11 @@ _U32 = 0xFFFFFFFF
 
 
 def _origin(cfg: GridConfig, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(cfg.origin, dtype=torch.float32, device=like.device)
+    return device_const(cfg.origin, torch.float32, like)
 
 
 def _dims(cfg: GridConfig, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(cfg.dims, dtype=torch.int32, device=like.device)
+    return device_const(cfg.dims, torch.int32, like)
 
 
 def _bidx(like: torch.Tensor) -> torch.Tensor:
@@ -74,19 +74,22 @@ def gather_voxel(cfg: GridConfig, field: torch.Tensor, ii: torch.Tensor) -> torc
 
 
 def set_voxel(cfg: GridConfig, field: torch.Tensor, ii: torch.Tensor, value) -> torch.Tensor:
-    """Scatter value(s) at integer coords [B,...,3] and return the new field;
-    out-of-bounds writes are DROPPED (callers mask inactive rows by passing
-    coords of -1). Kept rows must name distinct cells."""
+    """Write value(s) at integer coords [B,...,3] INTO `field` (an integer
+    grid [B,X,Y,Z]) and return it; out-of-bounds writes are DROPPED (callers
+    mask inactive rows by passing coords of -1). Kept rows must name distinct
+    cells. Only the named cells are touched: each kept row adds the
+    difference between its value and the cell's current one (exact under
+    integer wraparound), a dropped row adds 0 at its clamped cell, so it
+    never clobbers a kept row's write there."""
     valid, iic = _valid_clip(cfg, ii)
-    if not torch.is_tensor(value):
-        value = torch.tensor(value, dtype=field.dtype, device=field.device)
-    value = value.to(field.dtype).expand(valid.shape)
-    # a dropped row re-writes the value already at its clamped cell, unless a
-    # kept row names that cell: route dropped rows through a scratch plane
-    pad = torch.cat([field, field[:, :1]], dim=1)          # extra x-slab
-    xi = torch.where(valid, iic[..., 0], torch.full_like(iic[..., 0], field.shape[1]))
-    pad.index_put_((_bidx(valid).expand(valid.shape), xi, iic[..., 1], iic[..., 2]), value)
-    return pad[:, :field.shape[1]]
+    if torch.is_tensor(value):
+        value = value.to(field.dtype).expand(valid.shape)
+    else:
+        value = torch.full(valid.shape, value, dtype=field.dtype, device=field.device)
+    at = (_bidx(valid).expand(valid.shape), iic[..., 0], iic[..., 1], iic[..., 2])
+    delta = torch.where(valid, value - field[at], torch.zeros_like(value))
+    field.index_put_(at, delta, accumulate=True)
+    return field
 
 
 def span_for(cfg: GridConfig, size_world) -> Tuple[int, ...]:
@@ -147,12 +150,13 @@ def pack_solid_columns(cfg: GridConfig, vtype: torch.Tensor) -> torch.Tensor:
 
 def update_cols(cfg: GridConfig, cols: torch.Tensor, ii: torch.Tensor, solid) -> torch.Tensor:
     """Set/clear the SOLID bit of packed columns at integer coords [B,...,3]
-    and return the new columns. Out-of-bounds writes are dropped (pass coords
+    IN `cols` and return it. Out-of-bounds writes are dropped (pass coords
     of -1 to mask rows out); `solid` is a boolean (broadcast to the coord
     batch). Several coords may share one packed WORD (same x,z column,
     different y), so the update is an accumulate-add of single-bit deltas
     guarded by the bit's current value: associative and exact under int32
-    wraparound. Precondition: no two kept rows name the SAME CELL."""
+    wraparound, and it touches only the words named. Precondition: no two
+    kept rows name the SAME CELL."""
     valid, iic = _valid_clip(cfg, ii)
     xw = iic[..., 0]
     yw = iic[..., 1] >> 5
@@ -161,14 +165,14 @@ def update_cols(cfg: GridConfig, cols: torch.Tensor, ii: torch.Tensor, solid) ->
     bit = torch.ones_like(yw) << (iic[..., 1] & 31)          # int64
     old = _to_u(cols[bi, xw, yw, zw])
     already = (old & bit) != 0
-    if not torch.is_tensor(solid):
-        solid = torch.tensor(bool(solid), device=cols.device)
-    solid = solid.to(torch.bool).expand(valid.shape)
+    if torch.is_tensor(solid):
+        solid = solid.to(torch.bool).expand(valid.shape)
+    else:
+        solid = torch.full(valid.shape, bool(solid), dtype=torch.bool, device=cols.device)
     delta = torch.where(valid & (solid != already), bit, torch.zeros_like(bit))
     delta = torch.where(solid, delta, -delta)
-    out = cols.clone()
-    out.index_put_((bi, xw, yw, zw), _to_i32(delta & _U32), accumulate=True)
-    return out
+    cols.index_put_((bi, xw, yw, zw), _to_i32(delta & _U32), accumulate=True)
+    return cols
 
 
 def solid_from_cols(cfg: GridConfig, cols: torch.Tensor, ii: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,7 @@ import torch
 
 from megaverse_tpu_torch import constants as C
 from megaverse_tpu_torch.ops import grid as G
-from megaverse_tpu_torch.types import AgentState, GridConfig
+from megaverse_tpu_torch.types import AgentState, GridConfig, device_const
 
 HALF_XZ = C.AGENT_CAPSULE_RADIUS        # 0.33
 HALF_Y = C.AGENT_HALF_HEIGHT            # 0.855
@@ -172,7 +172,7 @@ def _sweep_horizontal(cfg: GridConfig, cols: torch.Tensor, pos: torch.Tensor,
     # so one pass of tensor ops covers what a loop over cells would; the
     # earliest candidate is then taken with a first-minimum argmin, which is
     # the loop's strict `t < t_best` in cell-then-candidate order.
-    offs = torch.tensor(_SWEEP_CELLS, dtype=torch.int32, device=pos.device)   # [8, 2]
+    offs = device_const(_SWEEP_CELLS, torch.int32, pos)   # [8, 2]
     px = pos[..., 0, None]
     pz = pos[..., 2, None]
     bottom = pos[..., 1, None] - HALF_Y
@@ -199,8 +199,8 @@ def _sweep_horizontal(cfg: GridConfig, cols: torch.Tensor, pos: torch.Tensor,
     dlen = torch.sqrt(torch.clamp(d2, min=1e-24))
     degen = d2 < 1e-12
     # degenerate exact-boundary touch: push straight back toward center
-    onorm = torch.tensor([1.0 / math.sqrt(ox * ox + oz * oz) for ox, oz in _SWEEP_CELLS],
-                         dtype=torch.float32, device=pos.device)
+    onorm = device_const([1.0 / math.sqrt(ox * ox + oz * oz) for ox, oz in _SWEEP_CELLS],
+                         torch.float32, pos)
     tnx = torch.where(degen, -offs[:, 0].to(torch.float32) * onorm, ex / dlen)
     tnz = torch.where(degen, -offs[:, 1].to(torch.float32) * onorm, ez / dlen)
     touch = solid & (d2 <= r * r) & (tnx * dx + tnz * dz <= 0.0)
@@ -237,8 +237,8 @@ def _sweep_horizontal(cfg: GridConfig, cols: torch.Tensor, pos: torch.Tensor,
     t_c = (-b - torch.sqrt(torch.clamp(disc, min=0.0))) / (2.0 * a_safe)
     xo = pxc + t_c * dxc
     zo = pzc + t_c * dzc
-    x_lo = torch.tensor([True, True, False, False], device=pos.device)
-    z_lo = torch.tensor([True, False, True, False], device=pos.device)
+    x_lo = device_const((True, True, False, False), torch.bool, pos)
+    z_lo = device_const((True, False, True, False), torch.bool, pos)
     out_x = torch.where(x_lo, xo <= cx0[..., None], xo >= cx1[..., None])
     out_z = torch.where(z_lo, zo <= cz0[..., None], zo >= cz1[..., None])
     v_c = (solid[..., None] & (a > 1e-12) & (disc >= 0.0) & (b < 0.0)
@@ -539,7 +539,7 @@ def resolve_agent_collisions(agents: AgentState, cfg: GridConfig = None,
     dir_xz = torch.stack([diff[..., 0], torch.zeros_like(d_xz), diff[..., 2]], -1) / d_xz[..., None]
     # Degenerate case: coincident centers -> push along +x deterministically.
     degen = overlap & (d_xz < 1e-5)
-    plus_x = torch.tensor([1.0, 0.0, 0.0], dtype=pos.dtype, device=pos.device)
+    plus_x = device_const((1.0, 0.0, 0.0), pos.dtype, pos)
     dir_xz = torch.where(degen[..., None], plus_x, dir_xz)
     push = (push_mag[..., None] * dir_xz).sum(dim=2)  # [B, A, 3]
     if cfg is None or cols is None:

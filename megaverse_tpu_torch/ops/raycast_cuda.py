@@ -67,7 +67,8 @@ import torch
 
 from megaverse_tpu_torch import constants as C
 from megaverse_tpu_torch.ops import raycast as R
-from megaverse_tpu_torch.types import AgentState, EnvConfig, PropState, PROP_FLAG_VISIBLE
+from megaverse_tpu_torch.types import (AgentState, EnvConfig, PropState, PROP_FLAG_VISIBLE,
+                                       device_const)
 
 INF = 1e30
 TILE_H = R.TILE_H
@@ -100,10 +101,12 @@ B3_BATCH = 32
 FRAME_K = 64
 VISIT_SEGMENTS = TILE_W // 32
 
-# Launch counts, one per form: `render_packed` adds one where it launches the
-# kernel, nowhere else. A merged launch counts as B6 whatever it traverses.
+# Launch counts of the port's hand-written kernels, one per render form and
+# one for the masked copy (ops/masked_copy.py): each wrapper adds one where it
+# launches its kernel, nowhere else. A merged launch counts as B6 whatever it
+# traverses.
 FORMS = ("render_b1", "render_b2", "render_b3", "render_b4", "render_b5", "render_b6")
-LAUNCHES = {name: 0 for name in FORMS}
+LAUNCHES = {name: 0 for name in FORMS + ("masked_copy",)}
 
 
 def reset_launch_counts() -> None:
@@ -127,7 +130,9 @@ NVCC_FLAGS = (
 )
 _lib = None
 _lib_lock = threading.Lock()
-BUILD_INFO = {"seconds": None, "log": None, "nvcc": None}
+# the nvcc used, and per source stem the seconds and output of its build
+# (left out when an earlier build of the same source was found)
+BUILD_INFO = {"nvcc": None}
 
 
 def find_nvcc() -> str:
@@ -143,7 +148,7 @@ def find_nvcc() -> str:
 def build_library(source: Path = CSRC_DIR / "render.cu") -> Path:
     """Compile one .cu into build/lib<stem>_<hash>.so (skipped if that exact
     source + flags was built before). Raises with the compiler's output on
-    failure."""
+    failure. Builds of different sources may run at once (threads)."""
     nvcc = find_nvcc()
     text = source.read_bytes()
     tag = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
@@ -156,11 +161,11 @@ def build_library(source: Path = CSRC_DIR / "render.cu") -> Path:
     t0 = time.perf_counter()
     proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
-    BUILD_INFO["log"] = (proc.stdout + proc.stderr).strip()
-    (BUILD_DIR / f"{source.stem}.nvcc.log").write_text(BUILD_INFO["log"] + "\n")
+    log = (proc.stdout + proc.stderr).strip()
+    BUILD_INFO[source.stem] = {"seconds": time.perf_counter() - t0, "log": log}
+    (BUILD_DIR / f"{source.stem}.nvcc.log").write_text(log + "\n")
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{BUILD_INFO['log']}")
+        raise RuntimeError(f"nvcc failed on {source}:\n{log}")
     os.replace(tmp, out)
     return out
 
@@ -184,7 +189,11 @@ def load_library():
         return _lib
 
 
-@functools.lru_cache(maxsize=16)
+# The device-tensor caches below are unbounded, like `types.device_const`: a
+# captured tick graph (capture.py) keeps reading a cached tensor's address
+# while no Python call touches its entry, so an evicted entry would hand its
+# memory back to the allocator under a live graph. The tensors are tiny.
+@functools.lru_cache(maxsize=None)
 def _device_constants(height: int, width: int, device_str: str) -> torch.Tensor:
     return torch.from_numpy(R.render_constants(height, width)).to(device_str)
 
@@ -487,7 +496,7 @@ def render_packed_plain(cams, prims, height, width, clusters=None, order=None,
 def _dead_rows(prims: torch.Tensor, n: int) -> torch.Tensor:
     dead = torch.zeros((prims.shape[0], n, prims.shape[2]), dtype=prims.dtype,
                        device=prims.device)
-    dead[:, :, 0] = -1.0
+    dead[:, :, 0].fill_(-1.0)
     return dead
 
 
@@ -576,7 +585,7 @@ def build_superclusters(clusters: torch.Tensor, k: int = SUPER_K):
     pad = (-g) % k
     if pad:
         dead = torch.full((bsz, pad, w), INF, dtype=clusters.dtype, device=clusters.device)
-        dead[:, :, 6:] = 0.0
+        dead[:, :, 6:].fill_(0.0)
         clusters = torch.cat([clusters, dead], dim=1)
     lo = clusters[..., 0:3]
     hi = clusters[..., 3:6]
@@ -624,6 +633,13 @@ def _tile_dir_bounds(height: int, width: int, tile_h: int = TILE_H,
     return lo, hi
 
 
+@functools.lru_cache(maxsize=None)
+def _tile_dir_bounds_on(height: int, width: int, tile_h: int, tile_w: int, device: str):
+    """`_tile_dir_bounds` as f32 tensors on `device`, made once."""
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in _tile_dir_bounds(height, width, tile_h, tile_w))
+
+
 def _tile_survive(cams: torch.Tensor, clusters: torch.Tensor,
                   height: int, width: int,
                   tile_h: int = TILE_H, tile_w: int = TILE_W) -> torch.Tensor:
@@ -634,9 +650,8 @@ def _tile_survive(cams: torch.Tensor, clusters: torch.Tensor,
     rotated by the agent's yaw/pitch with interval arithmetic, widened by a
     float-safety margin), so any cluster that any ray of the tile could enter
     in front of the camera and inside the far plane SURVIVES."""
-    d0lo_np, d0hi_np = _tile_dir_bounds(height, width, tile_h, tile_w)  # [T, 3]
-    d0lo = torch.from_numpy(d0lo_np).to(cams.device)[None, None]       # [1,1,T,3]
-    d0hi = torch.from_numpy(d0hi_np).to(cams.device)[None, None]
+    d0lo, d0hi = _tile_dir_bounds_on(height, width, tile_h, tile_w, str(cams.device))
+    d0lo, d0hi = d0lo[None, None], d0hi[None, None]                    # [1,1,T,3]
 
     yaw = cams[:, :, 3:4]                              # [B, A, 1]
     pitch = cams[:, :, 4:5]
@@ -798,7 +813,7 @@ def cull_bits(cams: torch.Tensor, clusters: torch.Tensor, height: int, width: in
 # Primitive-table construction (plain PyTorch, batched over envs).
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _packed_palette(device_str: str) -> torch.Tensor:
     # packed-int palette (float-exact: values <= 0xFFFFFF < 2^24)
     pal8 = np.round(np.asarray(C.PALETTE) * 255.0).astype(np.int64)
@@ -870,20 +885,20 @@ def build_prim_table(cfg: EnvConfig, box_lo: torch.Tensor, box_hi: torch.Tensor,
 
     # Agent bodies + eye boxes.
     num_agents = agents.pos.shape[1]
-    body_off = torch.tensor([0.0, C.AGENT_BODY_OFFSET_Y + 0.09, 0.0], dtype=f32, device=dev)
+    body_off = device_const((0.0, C.AGENT_BODY_OFFSET_Y + 0.09, 0.0), f32, dev)
     body_c = agents.pos + body_off
-    body_r = torch.tensor([0.35, 0.72, 0.35], dtype=f32, device=dev).expand(bsz, num_agents, 3)
+    body_r = device_const((0.35, 0.72, 0.35), f32, dev).expand(bsz, num_agents, 3)
     agent_colors = np.asarray(C.AGENT_COLORS)
-    body_idx = torch.tensor(agent_colors[np.arange(num_agents) % len(agent_colors)],
-                            dtype=torch.long, device=dev)
+    body_idx = device_const(agent_colors[np.arange(num_agents) % len(agent_colors)].tolist(),
+                            torch.long, dev)
     body_rgb = palette[body_idx].expand(bsz, num_agents)
     z4 = torch.zeros((bsz, num_agents, 4), dtype=f32, device=dev)
     full = lambda v: torch.full((bsz, num_agents, 1), float(v), dtype=f32, device=dev)
     rows_body = torch.cat(
         [full(PRIM_ELLIPSOID), body_c, body_r, body_rgb[..., None], z4], dim=-1)
 
-    cam_off = torch.tensor(
-        [0.0, C.AGENT_BODY_OFFSET_Y + C.AGENT_CAMERA_OFFSET_Y, 0.0], dtype=f32, device=dev)
+    cam_off = device_const(
+        (0.0, C.AGENT_BODY_OFFSET_Y + C.AGENT_CAMERA_OFFSET_Y, 0.0), f32, dev)
     cam_pos = agents.pos + cam_off
     eye_rgb = palette[C.COLOR_IDX["AGENT_EYES"]].expand(bsz, num_agents)
     rows_eyes = torch.cat(
@@ -900,9 +915,8 @@ def build_cams(cfg: EnvConfig, agents: AgentState, time_fraction: torch.Tensor,
     lastReward (column 6, drives the UI reward indicators), pad."""
     bsz, num_agents = agents.yaw.shape
     dev = agents.pos.device
-    eye = agents.pos + torch.tensor(
-        [0.0, C.AGENT_BODY_OFFSET_Y + C.AGENT_CAMERA_OFFSET_Y, 0.0],
-        dtype=torch.float32, device=dev)
+    eye = agents.pos + device_const(
+        (0.0, C.AGENT_BODY_OFFSET_Y + C.AGENT_CAMERA_OFFSET_Y, 0.0), torch.float32, dev)
     tf = time_fraction.to(torch.float32).reshape(bsz, 1).expand(bsz, num_agents)
     lr = (torch.zeros_like(agents.yaw) if last_reward is None
           else last_reward.to(torch.float32).expand(bsz, num_agents))

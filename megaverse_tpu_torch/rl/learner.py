@@ -3,10 +3,12 @@
 The reference delegates training to Sample Factory APPO across processes
 (megaverse_rl/train_megaverse.py:32-42: actor workers render on GPUs, a learner
 process optimizes). Here one process drives both on one card: the rollout is
-a host loop of batched steps (policy inference, `env_step`, one render kernel
-launch per step) whose observations never leave the device, then one PPO
-update on the stacked trajectory. Nothing in a rollout or an update reads a
-device value on the host.
+a host loop of batched steps (policy inference and sampling, eager; then the
+env tick, `capture.tick`: `env_step`, the reference's deferred auto-reset
+where it takes one, one render kernel launch, replayed from a CUDA graph on a
+CUDA device) whose observations never leave the device, written into rollout
+buffers, then one PPO update on the trajectory. Nothing in a rollout or an
+update reads a device value on the host.
 
 Hyperparameter defaults follow the reference README training command
 (README.md:134: rollout 32, recurrence 32, batch 4096) and
@@ -36,7 +38,8 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from megaverse_tpu_torch.env import RenderMode, env_step, render_batch
+from megaverse_tpu_torch.capture import TickGraphs
+from megaverse_tpu_torch.env import RenderMode
 from megaverse_tpu_torch.models.actor_critic import (
     ActorCritic,
     action_log_prob_entropy,
@@ -151,10 +154,14 @@ class Learner:
     """Rollout and PPO update for one scenario's env batch on one device.
 
     `device=None` means "cuda" and raises if no GPU is present (as for
-    VectorEnv); pass device="cpu" to run on the CPU."""
+    VectorEnv); pass device="cpu" to run on the CPU. `capture` (default True):
+    on a CUDA device the rollout replays the env tick from a CUDA graph
+    (`capture.TickGraphs`), False runs it eagerly; `graph_pool` is the graph
+    memory pool to share with the learners of other tasks (None: its own)."""
 
     def __init__(self, scenario: Scenario, num_envs: int, cfg: TrainConfig = TrainConfig(),
-                 render_bucket: Optional[tuple] = None, device=None):
+                 render_bucket: Optional[tuple] = None, device=None, capture: bool = True,
+                 graph_pool=None):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("the learner runs on a CUDA device by default and none "
@@ -176,6 +183,7 @@ class Learner:
                                  rnn_num_layers=cfg.rnn_num_layers, dtype=cfg.model_dtype,
                                  obs_height=scen.obs_height, obs_width=scen.obs_width
                                  ).to(self.device)
+        self.ticks = TickGraphs(scenario, self.device, capture=capture, pool=graph_pool)
         self.lr_steps = 0
         if cfg.lr_final >= 0.0 and cfg.total_env_steps > 0:
             # linear decay over the planned number of optimizer updates
@@ -210,28 +218,42 @@ class Learner:
     @torch.no_grad()
     def collect_rollout(self, ls: LearnerState, next_scenes: SceneData,
                         shaping: torch.Tensor) -> Tuple[LearnerState, RolloutBatch]:
-        """`cfg.rollout` steps of every env: policy, sampled actions, env_step
-        with the inline auto-reset select (as VectorEnv), one render launch.
-        The carry is zeroed where an env finished; rewards are clipped."""
-        scen, cfg = self.scenario, self.cfg
-        env_state, obs, rnn = ls.env_state, ls.obs, ls.carry
-        steps = []
-        for _ in range(cfg.rollout):
-            logits, value, rnn2 = self._policy(ls.params, obs, rnn)
+        """`cfg.rollout` steps of every env: policy, sampled actions, the env
+        tick (as VectorEnv's: the reference's deferred auto-reset where it
+        takes one, one render launch), its outputs written into this
+        rollout's buffers. The carry is zeroed where an env finished; rewards
+        are clipped. The first rollout over a state (or new `next_scenes` /
+        `shaping` objects) binds a copy of it in the tick's buffers; the
+        returned `env_state` is that copy, advanced in place by later
+        rollouts. `next_scenes` and `shaping` must change only in place."""
+        cfg, ticks = self.cfg, self.ticks
+        if not ticks.is_bound(ls.env_state, next_scenes, shaping):
+            ls = ls._replace(env_state=ticks.bind(ls.env_state, next_scenes, shaping))
+        fresh = (lambda x: x.clone()) if ticks.capture else (lambda x: x)
+        steps = cfg.rollout
+        obs_buf = torch.empty((steps,) + tuple(ls.obs.shape), dtype=ls.obs.dtype,
+                              device=ls.obs.device)
+        obs_buf[0].copy_(ls.obs)
+        rnn, bufs, obs = ls.carry, None, None
+        for t in range(steps):
+            logits, value, rnn2 = self._policy(ls.params, obs_buf[t], rnn)
             actions, logp = sample_actions(logits, ls.rng)
-            res = env_step(scen, env_state, next_scenes, multidiscrete_to_bitmask(actions),
-                           shaping)
-            new_obs = render_batch(scen, res.state, fmt="packed", bucket=self.render_bucket,
-                                   mode=self.render_mode)
+            obs, reward, done, _ = ticks.run(multidiscrete_to_bitmask(actions), fmt="packed",
+                                             bucket=self.render_bucket, mode=self.render_mode)
             # reset the RNN state on episode boundaries
-            rnn = torch.where(res.done[:, None, None], 0.0, rnn2)
-            reward = res.reward
+            rnn = torch.where(done[:, None, None], 0.0, rnn2)
             if cfg.reward_clip > 0:
                 reward = torch.clamp(reward, -cfg.reward_clip, cfg.reward_clip)
-            steps.append((obs, actions, logp, value, reward, res.done))
-            env_state, obs = res.state, new_obs
-        batch = RolloutBatch(*(torch.stack(x) for x in zip(*steps)), init_carry=ls.carry)
-        ls = ls._replace(env_state=env_state, obs=obs, carry=rnn,
+            row = (actions, logp, value, reward, done)
+            if bufs is None:
+                bufs = [torch.empty((steps,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+                        for x in row]
+            for buf, x in zip(bufs, row):
+                buf[t].copy_(x)
+            if t + 1 < steps:
+                obs_buf[t + 1].copy_(obs)
+        batch = RolloutBatch(obs_buf, *bufs, init_carry=ls.carry)
+        ls = ls._replace(obs=fresh(obs), carry=rnn,
                          step=ls.step + cfg.rollout * self.num_envs)
         return ls, batch
 

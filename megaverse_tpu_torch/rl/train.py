@@ -58,7 +58,7 @@ from megaverse_tpu_torch.rl.checkpoint import is_port_opt_state, load_checkpoint
 from megaverse_tpu_torch.rl.learner import Learner, TrainConfig, opt_state_from_numpy
 from megaverse_tpu_torch.scenarios import make_scenario
 from megaverse_tpu_torch.types import (scene_to_device, stack_scenes, state_from_scene,
-                                       tree_map, tree_scatter)
+                                       tree_map, tree_scatter_)
 from megaverse_tpu_torch.vector_env import refill_slot_rung
 
 
@@ -242,11 +242,14 @@ def _make_tasks(names, args, cfg: TrainConfig, device: torch.device, rank: int =
     t0 = time.perf_counter()
     initial = _first_layouts(names, args, rank, world_size, workers)
     layout_seconds = time.perf_counter() - t0
+    # the tasks tick in turn, never concurrently: their tick graphs share one
+    # memory pool
+    pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
     tasks = []
     while initial:      # each task's host layouts go once they are on the device
         i = len(tasks)
         tasks.append(_Task(names[i], args, cfg, args.seed + 1000 * i, device, rank, world_size,
-                           initial.pop(0)))
+                           initial.pop(0), graph_pool=pool))
     return tasks, layout_seconds
 
 
@@ -261,7 +264,7 @@ class _Task:
     """
 
     def __init__(self, name: str, args, cfg: TrainConfig, seed: int, device: torch.device,
-                 rank: int = 0, world_size: int = 1, initial=None):
+                 rank: int = 0, world_size: int = 1, initial=None, graph_pool=None):
         self.name = name
         self.scenario = make_scenario(name, num_agents=args.num_agents_per_env)
         if args.num_envs % world_size:
@@ -290,7 +293,7 @@ class _Task:
         # initial high-water mark; rebuilt when a later layout exceeds it.
         self.bucket = self._bucket_for(margin=1.5)
         self.learner = Learner(self.scenario, args.num_envs, cfg, render_bucket=self.bucket,
-                               device=device)
+                               device=device, graph_pool=graph_pool)
         # the learner's rollout and update, data-parallel over the ranks
         self.runner = ParallelLearner(self.learner) if world_size > 1 else self.learner
         rng = torch.arange(lo, lo + self.num_envs, dtype=torch.int64, device=device) \
@@ -377,11 +380,11 @@ class _Task:
         # num_envs) are dropped by the scatter
         n = len(idx)
         slots = refill_slot_rung(n, self.num_envs)
-        idx_dev = torch.from_numpy(np.concatenate(
-            [np.asarray(idx, np.int64), np.full((slots - n,), self.num_envs, np.int64)]
-        )).to(self.device)
-        self.next_scenes = tree_scatter(
-            self.next_scenes, idx_dev, scene_to_device(batch, self.device, non_blocking=True))
+        slot_idx = np.concatenate([np.asarray(idx, np.int64),
+                                   np.full((slots - n,), self.num_envs, np.int64)])
+        # in place: the learner's tick graphs hold these buffers
+        tree_scatter_(self.next_scenes, slot_idx,
+                      scene_to_device(batch, self.device, non_blocking=True))
         if self._bucket_grew():
             self.bucket = self._bucket_for(margin=1.5)
             self.learner.render_bucket = self.bucket
@@ -489,7 +492,7 @@ def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: 
         key, _, val = spec.partition("=")
         for t in tasks:
             if key in t.scenario.all_shaping_keys:
-                t.shaping[:, :, t.scenario.all_shaping_keys.index(key)] = float(val)
+                t.shaping[:, :, t.scenario.all_shaping_keys.index(key)].fill_(float(val))
                 log(f"[shaping] {t.name}: {key} = {float(val)}", flush=True)
             else:
                 log(f"[shaping] {t.name} has no key {key!r}; skipped", flush=True)
@@ -546,7 +549,7 @@ def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: 
         if args.megaverse_increase_team_spirit:
             frac = min(1.0, steps_done / args.megaverse_max_team_spirit_steps)
             for t in tasks:
-                t.shaping[:, :, t.spirit_col] = frac
+                t.shaping[:, :, t.spirit_col].fill_(frac)
         if observer is not None:
             observer(it, tasks, metrics)
 

@@ -37,6 +37,7 @@ from megaverse_tpu_torch.types import (
     PROP_FLAG_SOLID,
     PROP_FLAG_VISIBLE,
     PROP_FLAG_MOVABLE,
+    device_const,
 )
 
 
@@ -524,7 +525,7 @@ class Scenario:
         teamSpirit * r / teamSize."""
         r = self.shaping(shaping, key)
         spirit = self.shaping(shaping, C.P_TEAM_SPIRIT)
-        team = torch.as_tensor(self.team_affinity(), device=rewards.device)
+        team = device_const(self.team_affinity().tolist(), torch.int32, rewards)
         same_team = (team[:, None] == team[None, :]).to(torch.float32)  # [A, A]
         team_size = same_team.sum(dim=1)
 

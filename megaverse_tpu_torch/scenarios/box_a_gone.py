@@ -28,7 +28,7 @@ from megaverse_tpu_torch.scenarios import register_scenario
 from megaverse_tpu_torch.scenarios.base import HostScene, Scenario
 from megaverse_tpu_torch.scenarios.components import _put, _take
 from megaverse_tpu_torch.types import (
-    EnvState, GridConfig, PROP_FLAG_VISIBLE, SceneData, Tree)
+    EnvState, GridConfig, PROP_FLAG_VISIBLE, SceneData, Tree, device_const)
 from megaverse_tpu_torch.utils.refrng import ref_spawn_yaw
 
 K_FLOOR = "boxagoneTouchedFloor"
@@ -230,8 +230,7 @@ class BoxAGoneScenario(Scenario):
         sc: BoxAGoneState = state.scen
         bsz = sc.level_h.shape[0]
 
-        t = state.agents.pos + torch.tensor([0.0, C.AGENT_BODY_OFFSET_Y, 0.0],
-                                            dtype=f32, device=dev)
+        t = state.agents.pos + device_const((0.0, C.AGENT_BODY_OFFSET_Y, 0.0), f32, dev)
         coords = G.world_to_voxel(cfg, t)                              # [B,A,3]
         touches_floor = coords[..., 1] < 3
 

@@ -26,7 +26,7 @@ from megaverse_tpu_torch.scenarios.components import (
     hide_props,
     object_stacking_step,
 )
-from megaverse_tpu_torch.types import EnvState, GridConfig, SceneData, Tree
+from megaverse_tpu_torch.types import EnvState, GridConfig, SceneData, Tree, device_const
 from megaverse_tpu_torch.utils.perlin import PerlinNoise2D
 from megaverse_tpu_torch.utils.refperlin import SivPerlin
 from megaverse_tpu_torch.utils.refrng import ref_spawn_yaw
@@ -298,8 +298,7 @@ class CollectScenario(Scenario):
 
         sc: CollectState = state.scen
         # agent voxel (absoluteTransformation().translation() = visual origin)
-        off = torch.tensor([0.0, C.AGENT_BODY_OFFSET_Y, 0.0], dtype=f32,
-                           device=state.agents.pos.device)
+        off = device_const((0.0, C.AGENT_BODY_OFFSET_Y, 0.0), f32, state.agents.pos)
         agent_voxel = G.world_to_voxel(cfg, state.agents.pos + off)  # [B,A,3]
 
         match = ((sc.reward_voxel[:, :, None, :] == agent_voxel[:, None, :, :]).all(dim=-1)

@@ -19,12 +19,13 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from megaverse_tpu_torch import constants as C
 from megaverse_tpu_torch.ops import grid as G
 from megaverse_tpu_torch.types import (
-    EnvState, GridConfig, PROP_FLAG_SOLID, PROP_FLAG_VISIBLE)
+    EnvState, GridConfig, PROP_FLAG_SOLID, PROP_FLAG_VISIBLE, device_const)
 
 CARRYING_SCALE = 0.78  # component_object_stacking.hpp:63
 
@@ -41,7 +42,7 @@ def rot_yaw_pitch(yaw, pitch, v):
 
 
 def _vec3(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=like.device)
+    return device_const(v, torch.float32, like)
 
 
 def camera_anchor(agents, local: Tuple[float, float, float]) -> torch.Tensor:
@@ -51,7 +52,7 @@ def camera_anchor(agents, local: Tuple[float, float, float]) -> torch.Tensor:
     center (agent.cpp:95)."""
     base = agents.pos + _vec3(
         [0.0, C.AGENT_BODY_OFFSET_Y + C.AGENT_CAMERA_OFFSET_Y, 0.0], agents.pos)
-    local = [float(x) for x in _vec3(local, agents.pos).tolist()]
+    local = [float(x) for x in np.asarray(local, np.float32)]
     return base + rot_yaw_pitch(agents.yaw, agents.pitch, local)
 
 
@@ -158,7 +159,7 @@ def _stacking_pass(cfg, state, action, can_place=None, max_drop_scan=16) -> Stac
 
     solid_pv = G.solid_from_cols(cfg, state.cols, place_voxel)
     vo = G.gather_voxel(cfg, state.vobj, place_voxel)
-    dims = torch.tensor(cfg.dims, dtype=torch.int32, device=dev)
+    dims = device_const(cfg.dims, torch.int32, dev)
     in_grid = ((place_voxel >= 0) & (place_voxel < dims)).all(dim=-1)
     # "empty": not solid and no object (hpp:96). Out-of-grid counts as empty in
     # the reference (sparse grid); in-grid is required here so the object
@@ -178,7 +179,7 @@ def _stacking_pass(cfg, state, action, can_place=None, max_drop_scan=16) -> Stac
 
     # Gravity settle: descend while the voxel below is non-solid and has no
     # object (hpp:101-115), bounded scan.
-    down = torch.tensor([0, 1, 0], dtype=torch.int32, device=dev)
+    down = device_const((0, 1, 0), torch.int32, dev)
     settled = place_voxel
     for _ in range(max_drop_scan):
         below = settled - down
@@ -221,7 +222,7 @@ def _stacking_pass(cfg, state, action, can_place=None, max_drop_scan=16) -> Stac
     picked = torch.zeros_like(want_pick)
     pick_idx = torch.zeros(want_pick.shape, dtype=torch.long, device=dev)
     pick_voxel = v0
-    up = torch.tensor([0, 1, 0], dtype=torch.int32, device=dev)
+    up = device_const((0, 1, 0), torch.int32, dev)
     # Scan up to 2 voxels upward (pickupHeight <= 1, hpp:137-141): pick the
     # first voxel containing an object with nothing stacked on top.
     for h in range(2):
@@ -302,7 +303,6 @@ def hide_props(flags: torch.Tensor, top: torch.Tensor, hide: torch.Tensor) -> to
     mark = torch.zeros((bsz, p + 1), dtype=torch.bool, device=flags.device)
     top = top.long()
     scratch = torch.full_like(top, p)
-    bidx = torch.arange(bsz, device=flags.device)[:, None]
-    mark[bidx, torch.where(hide, top, scratch)] = True
-    mark[bidx, torch.where(hide, top + 1, scratch)] = True
+    mark.scatter_(1, torch.where(hide, top, scratch), True)
+    mark.scatter_(1, torch.where(hide, top + 1, scratch), True)
     return torch.where(mark[:, :p], flags & (0xFF ^ PROP_FLAG_VISIBLE), flags)

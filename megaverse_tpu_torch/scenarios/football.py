@@ -40,7 +40,7 @@ from megaverse_tpu_torch.ops import grid as G
 from megaverse_tpu_torch.ops.raycast import _div
 from megaverse_tpu_torch.scenarios import register_scenario
 from megaverse_tpu_torch.scenarios.base import HostScene, Scenario
-from megaverse_tpu_torch.types import EnvState, GridConfig, SceneData, Tree
+from megaverse_tpu_torch.types import EnvState, GridConfig, SceneData, Tree, device_const
 from megaverse_tpu_torch.utils.refrng import ref_spawn_yaw
 
 BALL_RADIUS = 1.0    # btSphereShape(2.0) scaled 0.5
@@ -163,7 +163,7 @@ class FootballScenario(Scenario):
         f32 = torch.float32
         sc: FootballState = state.scen
         dev = sc.ball_pos.device
-        vec = lambda v: torch.tensor(v, dtype=f32, device=dev)
+        vec = lambda v: device_const(v, f32, dev)
         ball = sc.ball_pos                                              # [B,3]
 
         # kicks (cpp:143-164): force 70 N for one tick on a 1 kg ball

@@ -37,7 +37,7 @@ from megaverse_tpu_torch.scenarios import register_scenario
 from megaverse_tpu_torch.scenarios.base import HostScene, Scenario
 from megaverse_tpu_torch.scenarios.components import _put, _take, hide_props
 from megaverse_tpu_torch.types import (EnvState, GridConfig, SceneData, Tree,
-                                       PROP_FLAG_VISIBLE)
+                                       PROP_FLAG_VISIBLE, device_const)
 from megaverse_tpu_torch.utils.hexmaze import HoneycombMaze, maze_walls
 
 K_EXPLORE = "exploreSolved"
@@ -322,8 +322,7 @@ def _hex_row_mask(scenario, states):
 
 def _agent_center(state: EnvState) -> torch.Tensor:
     """The agents' visual origins [B, A, 3] (capsule center + body offset)."""
-    off = torch.tensor([0.0, C.AGENT_BODY_OFFSET_Y, 0.0], dtype=torch.float32,
-                       device=state.agents.pos.device)
+    off = device_const((0.0, C.AGENT_BODY_OFFSET_Y, 0.0), torch.float32, state.agents.pos)
     return state.agents.pos + off
 
 

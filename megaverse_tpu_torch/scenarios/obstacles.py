@@ -34,7 +34,8 @@ from megaverse_tpu_torch.scenarios.components import (
     object_stacking_step,
 )
 from megaverse_tpu_torch.scenarios import platforms as P
-from megaverse_tpu_torch.types import EnvState, GridConfig, SceneData, Tree, tree_map
+from megaverse_tpu_torch.types import (EnvState, GridConfig, SceneData, Tree, device_const,
+                                       tree_map)
 from megaverse_tpu_torch.utils.refrng import ref_spawn_yaw
 
 K_AT_EXIT = "obstaclesAgentAtExit"
@@ -321,8 +322,7 @@ class ObstaclesScenario(Scenario):
         state, _fell = fall_detection_step(cfg, state)  # agentFell: no penalty
         sc: ObstaclesState = state.scen
 
-        off = torch.tensor([0.0, C.AGENT_BODY_OFFSET_Y, 0.0], dtype=f32,
-                           device=state.agents.pos.device)
+        off = device_const((0.0, C.AGENT_BODY_OFFSET_Y, 0.0), f32, state.agents.pos)
         agent_voxel = G.world_to_voxel(cfg, state.agents.pos + off)   # [B,A,3]
         terrain = G.gather_voxel(cfg, state.vterrain, agent_voxel)    # [B,A]
 

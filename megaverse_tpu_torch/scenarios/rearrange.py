@@ -23,7 +23,7 @@ from megaverse_tpu_torch.ops import grid as G
 from megaverse_tpu_torch.scenarios import register_scenario
 from megaverse_tpu_torch.scenarios.base import HostScene, Scenario
 from megaverse_tpu_torch.scenarios.components import object_stacking_step
-from megaverse_tpu_torch.types import EnvState, GridConfig, SceneData, Tree
+from megaverse_tpu_torch.types import EnvState, GridConfig, SceneData, Tree, device_const
 from megaverse_tpu_torch.utils.refrng import ref_spawn_yaw
 
 K_ONE_MORE = "rearrangeOneMoreObjectCorrectPosition"
@@ -296,7 +296,7 @@ class RearrangeScenario(Scenario):
         cfg = self.cfg.grid
         obj_prop = sc.obj_prop.long()
         pos = state.props.pos[G._bidx(obj_prop), obj_prop]              # [B,N,3]
-        right = torch.tensor(RIGHT, dtype=torch.int32, device=pos.device)
+        right = device_const(RIGHT, torch.int32, pos)
         off = G.world_to_voxel(cfg, pos) - right
         ag_carried = state.agents.carried.to(torch.int32)               # [B,A]
         carried = ((sc.obj_prop[:, :, None] == ag_carried[:, None, :])
@@ -312,7 +312,7 @@ class RearrangeScenario(Scenario):
         f32 = torch.float32
         rewards = torch.zeros_like(state.last_reward)
         cfg = self.cfg.grid
-        right = torch.tensor(RIGHT, dtype=torch.int32, device=action.device)
+        right = device_const(RIGHT, torch.int32, action)
 
         def can_place(st, voxel):
             delta = voxel - right

@@ -22,7 +22,7 @@ from megaverse_tpu_torch.ops import grid as G
 from megaverse_tpu_torch.scenarios import register_scenario
 from megaverse_tpu_torch.scenarios.base import HostScene, Scenario
 from megaverse_tpu_torch.scenarios.components import pickup_spot
-from megaverse_tpu_torch.types import EnvState, GridConfig, SceneData, Tree
+from megaverse_tpu_torch.types import EnvState, GridConfig, SceneData, Tree, device_const
 from megaverse_tpu_torch.utils.boxoban import LevelSource
 from megaverse_tpu_torch.utils.refrng import ref_spawn_yaw
 
@@ -193,7 +193,7 @@ class SokobanScenario(Scenario):
         interact = (action & C.ACTION_INTERACT) != 0                 # [B,A]
         spot = pickup_spot(state.agents)                             # [B,A,3] world
         box_voxel = G.world_to_voxel(cfg, spot)                      # [B,A,3]
-        off = torch.tensor([0.0, C.AGENT_BODY_OFFSET_Y, 0.0], dtype=f32, device=dev)
+        off = device_const((0.0, C.AGENT_BODY_OFFSET_Y, 0.0), f32, dev)
         agent_voxel = G.world_to_voxel(cfg, state.agents.pos + off)
 
         vobj = G.gather_voxel(cfg, state.vobj, box_voxel)           # [B,A]
@@ -205,7 +205,7 @@ class SokobanScenario(Scenario):
         # target occupancy checks (cpp:190-203)
         occupied_by_agent = (
             desired[:, :, None, :] == agent_voxel[:, None, :, :]).all(dim=-1).any(dim=2)
-        dims = torch.tensor(cfg.dims, dtype=torch.int32, device=dev)
+        dims = device_const(cfg.dims, torch.int32, dev)
         des_in = ((desired >= 0) & (desired < dims)).all(dim=-1)
         des_x = torch.clamp(desired[..., 0], 0, SIZE - 1).long()
         des_z = torch.clamp(desired[..., 2], 0, SIZE - 1).long()

@@ -26,7 +26,7 @@ from megaverse_tpu_torch.scenarios.components import (
     fall_detection_step,
     object_stacking_step,
 )
-from megaverse_tpu_torch.types import EnvState, GridConfig, SceneData, Tree
+from megaverse_tpu_torch.types import EnvState, GridConfig, SceneData, Tree, device_const
 from megaverse_tpu_torch.utils.refrng import ref_spawn_yaw
 
 K_PICKED = "towerPickedUpObject"
@@ -252,8 +252,7 @@ class TowerBuildingScenario(Scenario):
         sc = state.scen
 
         # visiting the zone while carrying (scenario_tower_building.cpp:177-196)
-        off = torch.tensor([0.0, C.AGENT_BODY_OFFSET_Y, 0.0], dtype=f32,
-                           device=state.agents.pos.device)
+        off = device_const((0.0, C.AGENT_BODY_OFFSET_Y, 0.0), f32, state.agents.pos)
         agent_voxel = G.world_to_voxel(cfg, state.agents.pos + off)
         carrying = state.agents.carried >= 0
         in_zone = self._in_zone_xz(sc.zone, agent_voxel)

@@ -13,6 +13,7 @@ Static configuration lives in frozen dataclasses (`GridConfig`, `EnvConfig`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Mapping, Sequence, Tuple
 
 import numpy as np
@@ -100,9 +101,11 @@ def _bcast_pred(pred: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 def tree_select(pred: torch.Tensor, on_true, on_false):
-    """Per-env select over every leaf: pred is bool [B]."""
+    """Per-env select over every leaf: pred is bool [B]. A leaf that is the
+    same tensor on both sides passes through as it is (no copy)."""
     return tree_map(
-        lambda a, b: torch.where(_bcast_pred(pred, a), a, b), on_true, on_false)
+        lambda a, b: a if a is b else torch.where(_bcast_pred(pred, a), a, b),
+        on_true, on_false)
 
 
 def tree_index(tree, idx: torch.Tensor):
@@ -125,6 +128,65 @@ def tree_scatter(dst, idx: torch.Tensor, src):
         return pad[:n]
 
     return tree_map(put, dst, src)
+
+
+def tree_scatter_(dst, idx, src):
+    """In-place `tree_scatter`: write rows of `src` into the leaves of `dst`
+    at leading-axis positions `idx`, a HOST index vector (numpy or CPU
+    tensor). Rows whose index equals dst's leading size are dropped, here on
+    the host, so only the real rows are copied and every leaf keeps its
+    storage. Real indices must be unique. Returns `dst`."""
+    idx = np.asarray(idx, np.int64)
+    leaves = tree_leaves(dst)
+    if not leaves:
+        return dst
+    keep = np.nonzero(idx < leaves[0].shape[0])[0]
+    if keep.size == 0:
+        return dst
+    device = leaves[0].device
+    rows, at = (torch.from_numpy(np.ascontiguousarray(x)) for x in (keep, idx[keep]))
+    if device.type == "cuda":
+        rows, at = (x.pin_memory().to(device, non_blocking=True) for x in (rows, at))
+
+    def put(d, s):
+        d.index_copy_(0, at, s.index_select(0, rows).to(d.dtype))
+        return d
+
+    tree_map(put, dst, src)
+    return dst
+
+
+def tree_copy_(dst, src):
+    """Copy every leaf of `src` into the matching leaf of `dst` in place,
+    skipping a leaf that already is dst's tensor. Returns `dst`."""
+    def put(d, s):
+        if s is not d:
+            d.copy_(s)
+        return d
+
+    tree_map(put, dst, src)
+    return dst
+
+
+@functools.lru_cache(maxsize=None)
+def _device_const(values: tuple, dtype: torch.dtype, device: str) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def _frozen(v):
+    if isinstance(v, (list, tuple, np.ndarray)):
+        return tuple(_frozen(x) for x in v)
+    return v.item() if isinstance(v, np.generic) else v
+
+
+def device_const(values, dtype: torch.dtype, like) -> torch.Tensor:
+    """The constant tensor of `values` (nested sequences of Python numbers)
+    on the device of `like` (a tensor or a device), made once per values,
+    dtype and device and cached: a tick takes its constants from the cache
+    and never copies them from the host again. Callers must not write into
+    the result."""
+    device = like.device if isinstance(like, torch.Tensor) else torch.device(like)
+    return _device_const(_frozen(values), dtype, str(device))
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +356,6 @@ def multidiscrete_to_bitmask(actions: torch.Tensor) -> torch.Tensor:
     actions = actions.to(torch.long)
     mask = torch.zeros(actions.shape[:-1], dtype=torch.int32, device=actions.device)
     for h, bits in enumerate(C.ACTION_HEAD_BITS):
-        table = torch.tensor(bits, dtype=torch.int32, device=actions.device)
+        table = device_const(bits, torch.int32, actions)
         mask = mask | table[actions[..., h]]
     return mask

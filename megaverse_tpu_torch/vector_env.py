@@ -14,8 +14,16 @@ generation between steps; each env's layout stream is keyed by its own seed
 chain (mirroring megaverse.cpp:60-69 master->per-env seeding), so results are
 deterministic regardless of refill timing.
 
-The step loop is eager PyTorch on the current CUDA stream; it makes no
-device-to-host synchronisation inside a `step_many` chunk.
+One tick (`capture.tick`: the sim step, the reference's deferred auto-reset
+where `should_defer_reset` holds, the render) advances the state in fixed
+buffers, in place: the counterpart of the reference's donated state. On a CUDA
+device the tick is captured once per render bucket and form into a CUDA graph
+and `step` / `step_many` replay it, as the reference runs a chunk as one
+jitted `lax.scan` (`VectorEnv(capture=False)` keeps the eager tick, as the
+reference's MEGAVERSE_SCAN_STEPS=0 keeps its loop; the CPU runs the same tick
+eagerly). A tick makes no device-to-host synchronisation; refills scatter into
+the bound layout buffer in place between ticks, in stream order. Every tensor
+`step` and `step_many` hand out is a copy, never a graph's static output.
 
 Render size classes (`_render_classes`, as the reference's): envs are grouped
 by the live row counts of their layouts into up to six classes, each class
@@ -25,7 +33,9 @@ the frames back in env order. They are OFF unless MEGAVERSE_CLASSES=1
 reference's rule on the TPU, for the reason it gives there: the bit-walk (B2)
 culls a padded row at the cost of one bit, so padding costs little, while on
 this launch-bound step every class adds its own cull prologue and B2 launch.
-Turning them on by default waits for a benchmark cell that shows a gain.
+Turning them on by default waits for a benchmark cell that shows a gain. With
+classes on the tick stays eager: the class groups change shape at every
+refill.
 """
 
 from __future__ import annotations
@@ -40,9 +50,9 @@ import numpy as np
 import torch
 
 from megaverse_tpu_torch import constants as C
+from megaverse_tpu_torch.capture import TickGraphs
 from megaverse_tpu_torch.env import (
     RenderMode,
-    env_step,
     render_batch,
     render_view,
     render_view_index,
@@ -57,7 +67,7 @@ from megaverse_tpu_torch.types import (
     scene_to_device,
     stack_scenes,
     state_from_scene,
-    tree_scatter,
+    tree_scatter_,
 )
 from megaverse_tpu_torch.utils.refrng import Rng, episode_reseed, fan_out_env_seeds
 
@@ -94,7 +104,14 @@ class VectorEnv:
     `env_offset + num_envs // world_size`, each seeded from its GLOBAL index,
     so the ranks' observations, gathered in rank order, equal one process's
     bit for bit. `self.num_envs` is then the envs held here and
-    `self.global_num_envs` the whole batch; actions are this shard's rows."""
+    `self.global_num_envs` the whole batch; actions are this shard's rows.
+
+    `capture` (default True): on a CUDA device, replay each tick from a CUDA
+    graph (`capture.TickGraphs`); False steps eagerly. `self.state`,
+    `self.next_scenes` and `self.shaping` are the bound buffers the tick
+    advances in place: read them freely, and write into them in place (a
+    leaf or tree assigned anew is copied into new buffers at the next tick,
+    and the graphs are captured again)."""
 
     def __init__(
         self,
@@ -108,6 +125,7 @@ class VectorEnv:
         device=None,
         rng_mode: str = "numpy",
         shard: Optional[tuple] = None,
+        capture: bool = True,
     ):
         if device is None:
             if not torch.cuda.is_available():
@@ -174,9 +192,13 @@ class VectorEnv:
 
         self.state: Optional[EnvState] = None
         self.next_scenes: Optional[SceneData] = None
+        self._ticks = TickGraphs(self.scenario, self.device, capture=capture)
         self._steps_since_poll = 0
-        # Running OR of done flags since the last refill (device tensor).
-        self._pending_dones: Optional[torch.Tensor] = None
+        # Running OR of done flags since the last refill (bool [B], bound in
+        # the tick) and whether any tick ran since.
+        self._pending_dones = torch.zeros((self.num_envs,), dtype=torch.bool,
+                                          device=self.device)
+        self._pending_any = False
         self._deferred_refill = None
         # counters a caller can read: auto-resets noticed by the host,
         # layouts uploaded into the buffer, and the host seconds spent waiting
@@ -451,9 +473,11 @@ class VectorEnv:
         rng = torch.arange(self.env_offset, self.env_offset + self.num_envs,
                            dtype=torch.int64, device=self.device) \
             + (int(self._master_seed) << 20)
-        self.state = state_from_scene(first, self.num_agents_per_env, rng)
+        self._pending_dones.zero_()
+        self._pending_any = False
+        self.state = self._ticks.bind(state_from_scene(first, self.num_agents_per_env, rng),
+                                      self.next_scenes, self.shaping, self._pending_dones)
         self._steps_since_poll = 0
-        self._pending_dones = None
         self._deferred_refill = None
         self._update_bucket()
         return self._render(self.state)
@@ -465,14 +489,31 @@ class VectorEnv:
             actions = multidiscrete_to_bitmask(actions)
         return actions.to(device=self.device, dtype=torch.int32)
 
+    @property
+    def captures(self) -> int:
+        """CUDA graphs of the tick captured so far (one per render bucket and
+        form since the last binding)."""
+        return self._ticks.captures
+
     def _advance(self, actions: torch.Tensor):
-        """One sim tick + render on the current stream; no host sync."""
-        res = env_step(self.scenario, self.state, self.next_scenes, actions,
-                       self.shaping)
-        self.state = res.state
-        obs = self._render(res.state) if self.render_obs else None
-        self._accumulate_dones(res.done)
-        return obs, res
+        """One tick on the bound buffers on the current stream, no host sync:
+        replayed from its graph (capture on a CUDA device, no size classes)
+        or eager. Returns (obs or None, reward, done, true_objective), which
+        may be the graph's static outputs."""
+        if not self._ticks.is_bound(self.state, self.next_scenes, self.shaping):
+            self.state = self._ticks.bind(self.state, self.next_scenes, self.shaping,
+                                          self._pending_dones)
+        self._pending_any = True
+        if self._use_classes:
+            _, reward, done, tobj = self._ticks.run(actions, render=False, eager=True)
+            obs = self._render_classes(self.state) if self.render_obs else None
+            return obs, reward, done, tobj
+        return self._ticks.run(actions, render=self.render_obs, fmt=self.obs_format,
+                               bucket=self._bucket, mode=self.render_mode)
+
+    def _fresh(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """A tensor to hand out: a copy where the tick may be a replay."""
+        return x.clone() if x is not None and self._ticks.capture else x
 
     def _empty_obs(self) -> torch.Tensor:
         cfg = self.scenario.cfg
@@ -489,13 +530,14 @@ class VectorEnv:
         uint8 [B,A,H,W,3] by `obs_format`."""
         if self.state is None:
             self.reset()
-        obs, res = self._advance(self._to_actions(actions))
+        obs, reward, done, tobj = (self._fresh(x) for x in
+                                   self._advance(self._to_actions(actions)))
         if obs is None:
             obs = self._empty_obs()
         self._steps_since_poll += 1
         if self._steps_since_poll >= DONE_POLL_INTERVAL:
             self._refill_consumed_slots()
-        return obs, res.reward, res.done, res.true_objective
+        return obs, reward, done, tobj
 
     def step_many(self, action_pool, n_steps: int):
         """Run `n_steps` env steps back-to-back (throughput path).
@@ -504,8 +546,8 @@ class VectorEnv:
         pool[i % K]. Returns (last_obs, dones: list of n [B] tensors,
         checksums) where checksums is a one-element list whose entry depends
         on the last frame (synchronise on it to wait for the chunk). The chunk
-        is a Python loop of eager steps queued on the current stream with no
-        device-to-host synchronisation inside it.
+        is a loop of ticks queued on the current stream (graph replays where
+        capture is on) with no device-to-host synchronisation inside it.
 
         n_steps must stay below the shortest episode length in steps so a
         layout-buffer slot cannot be consumed twice within one chunk (asserted
@@ -535,15 +577,18 @@ class VectorEnv:
         if not overlap:
             self._refill_consumed_slots()
 
-        pool = torch.as_tensor(np.asarray(action_pool) if not torch.is_tensor(action_pool)
-                               else action_pool).to(device=self.device, dtype=torch.int32)
+        if torch.is_tensor(action_pool):
+            pool = action_pool.to(device=self.device, dtype=torch.int32)
+        else:
+            pool = torch.from_numpy(np.ascontiguousarray(action_pool, np.int32))
+            if self.device.type == "cuda":
+                pool = pool.pin_memory().to(self.device, non_blocking=True)
         dones = []
         obs = None
         for i in range(n_steps):
-            obs, res = self._advance(pool[i % pool.shape[0]])
-            dones.append(res.done)
-        if obs is None:
-            obs = self._empty_obs()
+            obs, _, done, _ = self._advance(pool[i % pool.shape[0]])
+            dones.append(self._fresh(done))
+        obs = self._empty_obs() if obs is None else self._fresh(obs)
         self._steps_since_poll = 0  # refilled at next step_many/flush
         # One checksum per chunk; it depends on the final obs, whose chain
         # covers every step in the chunk.
@@ -562,18 +607,22 @@ class VectorEnv:
             return self.reset()
         return self._render(self.state)
 
-    def _accumulate_dones(self, done: torch.Tensor) -> None:
-        self._pending_dones = (
-            done if self._pending_dones is None else self._pending_dones | done)
+    def _take_pending(self) -> Optional[torch.Tensor]:
+        """The packed done bits of the ticks since the last refill (None if
+        none ran), and a cleared running OR, both queued on the stream."""
+        if not self._pending_any:
+            return None
+        self._pending_any = False
+        packed = self._pack_mask(self._pending_dones)
+        self._pending_dones.zero_()
+        return packed
 
     def _refill_consumed_slots(self) -> None:
         self._steps_since_poll = 0
         self._apply_refill_bits(self._take_refill_stash())
-        mask = self._pending_dones
-        self._pending_dones = None
-        if mask is None:
-            return
-        self._apply_refill_bits(self._fetch_bits(self._pack_mask(mask)))
+        packed = self._take_pending()
+        if packed is not None:
+            self._apply_refill_bits(self._fetch_bits(packed))
 
     # -- refill overlap machinery --------------------------------------------
     # The packed done-bits of chunk N are computed as a device op queued right
@@ -609,10 +658,9 @@ class VectorEnv:
         PREVIOUS chunk's stash into generation + upload + scatter while this
         chunk runs on the device."""
         deferred = self._take_refill_stash()
-        mask = self._pending_dones
-        self._pending_dones = None
-        if mask is not None:
-            self._deferred_refill = self._fetch_bits(self._pack_mask(mask))
+        packed = self._take_pending()
+        if packed is not None:
+            self._deferred_refill = self._fetch_bits(packed)
         self._apply_refill_bits(deferred)
         self._steps_since_poll = 0
 
@@ -636,12 +684,11 @@ class VectorEnv:
         n = idx.size
         slots = refill_slot_rung(n, self.num_envs)
         new_scenes = self._generate_batch(idx.tolist(), pad_to=slots)
-        idx_dev = torch.from_numpy(np.concatenate(
-            [idx.astype(np.int64),
-             np.full((slots - n,), self.num_envs, np.int64)])).to(self.device)
-        # out of place (tree_scatter builds new leaves): steps already queued
-        # keep reading the old buffer, and `state` never aliases either one
-        self.next_scenes = tree_scatter(self.next_scenes, idx_dev, new_scenes)
+        slot_idx = np.concatenate([idx.astype(np.int64),
+                                   np.full((slots - n,), self.num_envs, np.int64)])
+        # in place, into the bound buffer: the scatter is queued behind the
+        # ticks already on the stream, which read the slots before it lands
+        tree_scatter_(self.next_scenes, slot_idx, new_scenes)
         if self._use_classes:
             # done envs consumed their buffered layout; the new one is buffered
             self._cls_rows_cur[idx] = self._cls_rows_buf[idx]
@@ -662,9 +709,8 @@ class VectorEnv:
         for k, v in rs.items():
             if k in keys:
                 row[keys.index(k)] = v
-        shaping = self.shaping.clone()
-        shaping[env_idx, agent_idx] = torch.from_numpy(row).to(self.device)
-        self.shaping = shaping
+        # into the bound buffer: ticks already queued read it before
+        self.shaping[env_idx, agent_idx].copy_(torch.from_numpy(row))
 
     @property
     def action_space_sizes(self):

@@ -1,7 +1,8 @@
 """Count the tensor operations the PyTorch port dispatches per step.
 
-The port's step loop is eager PyTorch: every tensor operation is one dispatch
-from Python and, on a GPU, one kernel launch. This script counts them with a
+The port's tick is plain PyTorch: every tensor operation is one dispatch from
+Python and, on a GPU, one kernel launch (run eagerly, or recorded once into
+the tick's CUDA graph and replayed). This script counts them with a
 `TorchDispatchMode` hook for one `env_step` and one `render_tables` (the cull
 prologue in front of the render kernel) per scenario. The counts do not depend
 on the batch size or on the device, so it runs on the CPU at a small batch:

@@ -125,11 +125,12 @@ def test_update_cols_and_set_voxel_match(key, solid):
     ii[:, :2] = top                                   # same word, highest bits
     jc, tc = jax_cols(jcfg, vt), torch_cols(vt)
     want = np.asarray(jax.vmap(lambda c, i: JG.update_cols(jcfg, c, i, solid))(jc, jnp.asarray(ii)))
-    got = TG.update_cols(tcfg, tc, torch.from_numpy(ii), solid)
+    # both write into the grid they are given: hand them copies
+    got = TG.update_cols(tcfg, tc.clone(), torch.from_numpy(ii), solid)
     np.testing.assert_array_equal(as_u32(got), want)
     # dense twin: set_voxel then re-pack
     flag = np.uint8(C.VOXEL_SOLID if solid else 0)
-    tvt = torch.from_numpy(vt)
+    tvt = torch.from_numpy(vt.copy())
     cur = TG.gather_voxel(tcfg, tvt, torch.from_numpy(ii))
     tvt2 = TG.set_voxel(tcfg, tvt, torch.from_numpy(ii), (cur & 0xFE) | int(flag))
     np.testing.assert_array_equal(as_u32(TG.pack_solid_columns(tcfg, tvt2)), want)
@@ -138,7 +139,8 @@ def test_update_cols_and_set_voxel_match(key, solid):
     np.testing.assert_array_equal(tvt2.numpy(), np.asarray(jvt2))
     # fully masked rows change nothing
     none = torch.full((B, 4, 3), -1, dtype=torch.int32)
-    np.testing.assert_array_equal(TG.update_cols(tcfg, tc, none, True).numpy(), tc.numpy())
+    np.testing.assert_array_equal(TG.update_cols(tcfg, tc.clone(), none, True).numpy(),
+                                  tc.numpy())
 
 
 @pytest.mark.parametrize("max_scan", [1, 7, 16, 32])
