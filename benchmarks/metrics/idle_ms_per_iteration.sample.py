@@ -1,0 +1,10 @@
+"""idle_ms_per_iteration.sample: device-idle ms in the traced iteration (rank
+0) while the innermost open program span was `megaverse.rollout.sample`, the
+rollout's action sampling; stretches under the profiler's own ranges left
+out (spans.py)."""
+
+import spans
+
+
+def read(result):
+    return spans.idle_ms_per_iteration(result, "megaverse.rollout.sample")

@@ -1,0 +1,9 @@
+"""idle_ms_per_iteration.update: device-idle ms in the traced iteration (rank
+0) while the innermost open program span was `megaverse.update`, the PPO
+update; stretches under the profiler's own ranges left out (spans.py)."""
+
+import spans
+
+
+def read(result):
+    return spans.idle_ms_per_iteration(result, "megaverse.update")

@@ -21,7 +21,9 @@ static: a caller hands out copies.
 
 Launch counts (`raycast_cuda.LAUNCHES`) are kept on
 the host where each wrapper launches: a capture counts nothing, and each
-replay adds the launches its graph holds.
+replay adds the launches its graph holds. The tick's three marker kernels
+(ops/marks.py) are captured with it and counted nowhere; `TickGraphs.run`
+is the span "megaverse.tick" (action copy and replay, or the eager tick).
 """
 
 from __future__ import annotations
@@ -38,8 +40,10 @@ from megaverse_tpu_torch.env import (
     should_defer_reset,
 )
 from megaverse_tpu_torch.ops import raycast_cuda as RC
+from megaverse_tpu_torch.ops.marks import mark
 from megaverse_tpu_torch.scenarios.base import Scenario
 from megaverse_tpu_torch.types import EnvState, SceneData, tree_copy_, tree_leaves, tree_map
+from megaverse_tpu_torch.utils.logging import span
 
 
 def tick(scenario: Scenario, state: EnvState, next_scenes: SceneData, action: torch.Tensor,
@@ -50,7 +54,12 @@ def tick(scenario: Scenario, state: EnvState, next_scenes: SceneData, action: to
     it rewrote copied back into `state`'s own tensor, then (where
     `should_defer_reset` holds, as in the reference) the deferred reset's
     masked copy into those tensors, `pending |= done`, and the new state
-    rendered. Returns (obs or None, reward, done, true_objective)."""
+    rendered. On CUDA the marker kernels (ops/marks.py) open the three
+    stages: "tick" before `env_step`, "reset" after the write-back, "cull"
+    before the render's cull prologue. Returns (obs or None, reward, done,
+    true_objective)."""
+    dev = action.device
+    mark("tick", dev)
     defer = should_defer_reset(scenario)
     res = env_step(scenario, state, next_scenes, action, shaping, defer_reset=defer)
     # an output that is a state leaf the step passed through (a scenario's
@@ -59,13 +68,16 @@ def tick(scenario: Scenario, state: EnvState, next_scenes: SceneData, action: to
     reward, done, true_objective = (x.clone() if id(x) in bound else x
                                     for x in (res.reward, res.done, res.true_objective))
     tree_copy_(state, res.state)
+    mark("reset", dev)
     if defer:
         apply_deferred_resets(state, next_scenes, done,
                               scen_fields=scenario.deferred_scen_fields)
     if pending is not None:
         pending.logical_or_(done)
-    obs = (render_batch(scenario, state, fmt=fmt, bucket=bucket, mode=mode)
-           if render else None)
+    obs = None
+    if render:
+        mark("cull", dev)
+        obs = render_batch(scenario, state, fmt=fmt, bucket=bucket, mode=mode)
     return obs, reward, done, true_objective
 
 
@@ -130,24 +142,25 @@ class TickGraphs:
         Returns (obs or None, reward, done, true_objective): fresh tensors
         when eager, the graph's static outputs when replayed (valid until the
         next tick of this batch)."""
-        self.action.copy_(action)
-        args = dict(render=render, fmt=fmt, bucket=bucket, mode=mode)
-        if eager or not self.capture:
-            return self._tick(**args)
-        cfg = self.scenario.cfg
-        key = (render, fmt, bucket, mode, cfg.obs_height, cfg.obs_width)
-        entry = self._graphs.get(key)
-        if entry is None:
-            if key not in self._warm:
-                self._warm.add(key)
-                return self._warm_tick(args)
-            entry = self._capture(key, args)
-        graph, out, delta = entry
-        graph.replay()
-        self.replays += 1
-        for k, v in delta.items():
-            RC.LAUNCHES[k] += v
-        return out
+        with span("megaverse.tick"):
+            self.action.copy_(action)
+            args = dict(render=render, fmt=fmt, bucket=bucket, mode=mode)
+            if eager or not self.capture:
+                return self._tick(**args)
+            cfg = self.scenario.cfg
+            key = (render, fmt, bucket, mode, cfg.obs_height, cfg.obs_width)
+            entry = self._graphs.get(key)
+            if entry is None:
+                if key not in self._warm:
+                    self._warm.add(key)
+                    return self._warm_tick(args)
+                entry = self._capture(key, args)
+            graph, out, delta = entry
+            graph.replay()
+            self.replays += 1
+            for k, v in delta.items():
+                RC.LAUNCHES[k] += v
+            return out
 
     def _tick(self, **args):
         return tick(self.scenario, self.state, self.next_scenes, self.action, self.shaping,

@@ -21,6 +21,7 @@ import torch
 import torch.distributed as dist
 
 from megaverse_tpu_torch.rl.learner import Learner, LearnerState, RolloutBatch
+from megaverse_tpu_torch.utils.logging import span
 
 
 def rank_seed(seed: int, rank: int) -> int:
@@ -67,21 +68,22 @@ class ParallelLearner:
     def pmean(self, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Every tensor of `tree` averaged over the ranks (`jax.lax.pmean`):
         one all-reduce of the summed values per dtype, then / world size; the
-        result is the same on every rank."""
-        groups: Dict[torch.dtype, list] = {}
-        for k, v in tree.items():
-            groups.setdefault(v.dtype, []).append(k)
-        out = {}
-        for keys in groups.values():
-            flat = torch.cat([tree[k].detach().reshape(-1) for k in keys])
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
-            flat = flat / self.world_size
-            offset = 0
-            for k in keys:
-                n = tree[k].numel()
-                out[k] = flat[offset:offset + n].view_as(tree[k])
-                offset += n
-        return out
+        result is the same on every rank. Span: "megaverse.pmean"."""
+        with span("megaverse.pmean"):
+            groups: Dict[torch.dtype, list] = {}
+            for k, v in tree.items():
+                groups.setdefault(v.dtype, []).append(k)
+            out = {}
+            for keys in groups.values():
+                flat = torch.cat([tree[k].detach().reshape(-1) for k in keys])
+                dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+                flat = flat / self.world_size
+                offset = 0
+                for k in keys:
+                    n = tree[k].numel()
+                    out[k] = flat[offset:offset + n].view_as(tree[k])
+                    offset += n
+            return out
 
     def collect_rollout(self, ls: LearnerState, next_scenes, shaping):
         return self.learner.collect_rollout(ls, next_scenes, shaping)

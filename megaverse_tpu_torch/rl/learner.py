@@ -48,6 +48,7 @@ from megaverse_tpu_torch.models.actor_critic import (
 )
 from megaverse_tpu_torch.scenarios.base import Scenario
 from megaverse_tpu_torch.types import EnvState, SceneData, multidiscrete_to_bitmask
+from megaverse_tpu_torch.utils.logging import span
 
 Params = Dict[str, torch.Tensor]
 
@@ -225,37 +226,43 @@ class Learner:
         are clipped. The first rollout over a state (or new `next_scenes` /
         `shaping` objects) binds a copy of it in the tick's buffers; the
         returned `env_state` is that copy, advanced in place by later
-        rollouts. `next_scenes` and `shaping` must change only in place."""
-        cfg, ticks = self.cfg, self.ticks
-        if not ticks.is_bound(ls.env_state, next_scenes, shaping):
-            ls = ls._replace(env_state=ticks.bind(ls.env_state, next_scenes, shaping))
-        fresh = (lambda x: x.clone()) if ticks.capture else (lambda x: x)
-        steps = cfg.rollout
-        obs_buf = torch.empty((steps,) + tuple(ls.obs.shape), dtype=ls.obs.dtype,
-                              device=ls.obs.device)
-        obs_buf[0].copy_(ls.obs)
-        rnn, bufs, obs = ls.carry, None, None
-        for t in range(steps):
-            logits, value, rnn2 = self._policy(ls.params, obs_buf[t], rnn)
-            actions, logp = sample_actions(logits, ls.rng)
-            obs, reward, done, _ = ticks.run(multidiscrete_to_bitmask(actions), fmt="packed",
-                                             bucket=self.render_bucket, mode=self.render_mode)
-            # reset the RNN state on episode boundaries
-            rnn = torch.where(done[:, None, None], 0.0, rnn2)
-            if cfg.reward_clip > 0:
-                reward = torch.clamp(reward, -cfg.reward_clip, cfg.reward_clip)
-            row = (actions, logp, value, reward, done)
-            if bufs is None:
-                bufs = [torch.empty((steps,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-                        for x in row]
-            for buf, x in zip(bufs, row):
-                buf[t].copy_(x)
-            if t + 1 < steps:
-                obs_buf[t + 1].copy_(obs)
-        batch = RolloutBatch(obs_buf, *bufs, init_carry=ls.carry)
-        ls = ls._replace(obs=fresh(obs), carry=rnn,
-                         step=ls.step + cfg.rollout * self.num_envs)
-        return ls, batch
+        rollouts. `next_scenes` and `shaping` must change only in place.
+        Spans: "megaverse.rollout", in it per step "megaverse.rollout.policy",
+        "megaverse.rollout.sample" and the tick's "megaverse.tick"."""
+        with span("megaverse.rollout"):
+            cfg, ticks = self.cfg, self.ticks
+            if not ticks.is_bound(ls.env_state, next_scenes, shaping):
+                ls = ls._replace(env_state=ticks.bind(ls.env_state, next_scenes, shaping))
+            fresh = (lambda x: x.clone()) if ticks.capture else (lambda x: x)
+            steps = cfg.rollout
+            obs_buf = torch.empty((steps,) + tuple(ls.obs.shape), dtype=ls.obs.dtype,
+                                  device=ls.obs.device)
+            obs_buf[0].copy_(ls.obs)
+            rnn, bufs, obs = ls.carry, None, None
+            for t in range(steps):
+                with span("megaverse.rollout.policy"):
+                    logits, value, rnn2 = self._policy(ls.params, obs_buf[t], rnn)
+                with span("megaverse.rollout.sample"):
+                    actions, logp = sample_actions(logits, ls.rng)
+                    bits = multidiscrete_to_bitmask(actions)
+                obs, reward, done, _ = ticks.run(bits, fmt="packed", bucket=self.render_bucket,
+                                                 mode=self.render_mode)
+                # reset the RNN state on episode boundaries
+                rnn = torch.where(done[:, None, None], 0.0, rnn2)
+                if cfg.reward_clip > 0:
+                    reward = torch.clamp(reward, -cfg.reward_clip, cfg.reward_clip)
+                row = (actions, logp, value, reward, done)
+                if bufs is None:
+                    bufs = [torch.empty((steps,) + tuple(x.shape), dtype=x.dtype,
+                                        device=x.device) for x in row]
+                for buf, x in zip(bufs, row):
+                    buf[t].copy_(x)
+                if t + 1 < steps:
+                    obs_buf[t + 1].copy_(obs)
+            batch = RolloutBatch(obs_buf, *bufs, init_carry=ls.carry)
+            ls = ls._replace(obs=fresh(obs), carry=rnn,
+                             step=ls.step + cfg.rollout * self.num_envs)
+            return ls, batch
 
     # ------------------------------------------------------------------ loss
     def _forward_sequence(self, params: Params, batch: RolloutBatch):
@@ -339,31 +346,33 @@ class Learner:
         """GAE and the PPO update(s) of one rollout. `pmean` (data parallel,
         parallel.ParallelLearner.pmean; the reference's `axis_name`) averages
         the gradients and metrics over the ranks after the backward pass,
-        before the clip and Adam."""
-        with torch.no_grad():
-            _, last_value, _ = self._policy(ls.params, ls.obs, ls.carry)
-            norm_adv, returns = self._gae(batch, last_value)
-        cfg = self.cfg
-        n_mb = max(1, cfg.num_minibatches)
-        params, opt_state = ls.params, ls.opt_state
-        progress = ls.step / cfg.total_env_steps if cfg.total_env_steps > 0 else 0.0
-        if cfg.num_epochs <= 1 and n_mb <= 1:
-            params, opt_state, metrics = self._apply(params, opt_state, batch, norm_adv,
-                                                     returns, progress, pmean)
-        else:
-            # Sequence-level minibatching (SF-style: whole rollouts per env,
-            # the truncated-BPTT state stays valid); env axis shuffled per epoch.
-            b = batch.reward.shape[1]   # this rank's envs
-            if b % n_mb:
-                raise ValueError(f"num_envs {b} is not a multiple of num_minibatches {n_mb}")
-            for _ in range(max(1, cfg.num_epochs)):
-                perm = torch.randperm(b, generator=ls.rng, device=self.device)
-                for m in range(n_mb):
-                    idx = perm[m * (b // n_mb):(m + 1) * (b // n_mb)]
-                    params, opt_state, metrics = self._apply(
-                        params, opt_state, minibatch(batch, idx),
-                        norm_adv[:, idx], returns[:, idx], progress, pmean)
-        return ls._replace(params=params, opt_state=opt_state), metrics
+        before the clip and Adam. Span: "megaverse.update"."""
+        with span("megaverse.update"):
+            with torch.no_grad():
+                _, last_value, _ = self._policy(ls.params, ls.obs, ls.carry)
+                norm_adv, returns = self._gae(batch, last_value)
+            cfg = self.cfg
+            n_mb = max(1, cfg.num_minibatches)
+            params, opt_state = ls.params, ls.opt_state
+            progress = ls.step / cfg.total_env_steps if cfg.total_env_steps > 0 else 0.0
+            if cfg.num_epochs <= 1 and n_mb <= 1:
+                params, opt_state, metrics = self._apply(params, opt_state, batch, norm_adv,
+                                                         returns, progress, pmean)
+            else:
+                # Sequence-level minibatching (SF-style: whole rollouts per env,
+                # the truncated-BPTT state stays valid); env axis shuffled per epoch.
+                b = batch.reward.shape[1]   # this rank's envs
+                if b % n_mb:
+                    raise ValueError(f"num_envs {b} is not a multiple of num_minibatches "
+                                     f"{n_mb}")
+                for _ in range(max(1, cfg.num_epochs)):
+                    perm = torch.randperm(b, generator=ls.rng, device=self.device)
+                    for m in range(n_mb):
+                        idx = perm[m * (b // n_mb):(m + 1) * (b // n_mb)]
+                        params, opt_state, metrics = self._apply(
+                            params, opt_state, minibatch(batch, idx),
+                            norm_adv[:, idx], returns[:, idx], progress, pmean)
+            return ls._replace(params=params, opt_state=opt_state), metrics
 
 
 def minibatch(batch: RolloutBatch, idx: torch.Tensor) -> RolloutBatch:

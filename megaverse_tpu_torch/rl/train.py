@@ -16,8 +16,10 @@ Usage:
 
 Runs on the GPU; `--device cpu` runs it on the CPU (the renderer then takes
 the kernel's plain PyTorch version). At the end it writes the checkpoint and
-`train_summary.json` (rates, per-update times, last metrics) into
-<train_dir>/<experiment>.
+`train_summary.json` (rates; per-update rollout and update times, device ms
+from CUDA events on a card, host ms on the CPU, with no synchronise of their
+own; the update loop's spans, `utils/logging.span`, as host seconds and
+calls; last metrics) into <train_dir>/<experiment>.
 
 Data parallel (megaverse_tpu_torch/parallel): `--n_devices N` spawns N
 ranks, rank r on cuda:r (or on the CPU with `--device cpu`; gloo there, NCCL
@@ -59,6 +61,7 @@ from megaverse_tpu_torch.rl.learner import Learner, TrainConfig, opt_state_from_
 from megaverse_tpu_torch.scenarios import make_scenario
 from megaverse_tpu_torch.types import (scene_to_device, stack_scenes, state_from_scene,
                                        tree_map, tree_scatter_)
+from megaverse_tpu_torch.utils.logging import IntervalTimer, span, tprof
 from megaverse_tpu_torch.vector_env import refill_slot_rung
 
 
@@ -132,11 +135,6 @@ def resolve_device(name: str, rank: int = 0, world_size: int = 1) -> torch.devic
                                f"{torch.cuda.device_count()} CUDA devices")
         device = torch.device("cuda", local)
     return device
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _initial_layouts(name: str, num_agents: int, seed: int, num_envs: int, ids):
@@ -357,23 +355,29 @@ class _Task:
         last rollout (they consumed theirs: num_frames < rollout). Each env's
         generator stream advances only when its slot refills, so layouts are
         deterministic given the same reset pattern."""
-        if self._pending is not None:
-            # the previous rollout's asynchronous generation
-            idx, batch = self._pending.result()
-            self._pending = None
-            self._apply_refill(idx, batch)
-        nf = self.ls.env_state.num_frames.cpu().numpy()
-        idx = np.nonzero(nf < self.cfg.rollout)[0].tolist()
-        if not idx:
-            return
-        slots = refill_slot_rung(len(idx), self.num_envs)
-        if not self.async_refill:
-            self._apply_refill(idx, self._generate(idx, pad_to=slots))
-            return
-        if self._pool is None:
-            # one worker: per-env generator streams advance in submission order
-            self._pool = ThreadPoolExecutor(1, thread_name_prefix=f"gen-{self.name}")
-        self._pending = self._pool.submit(lambda: (idx, self._generate(idx, pad_to=slots)))
+        with span("megaverse.refill"):
+            if self._pending is not None:
+                # the previous rollout's asynchronous generation
+                with span("megaverse.refill.wait"):
+                    idx, batch = self._pending.result()
+                self._pending = None
+                self._apply_refill(idx, batch)
+            with span("megaverse.refill.poll"):
+                nf = self.ls.env_state.num_frames.cpu().numpy()
+            idx = np.nonzero(nf < self.cfg.rollout)[0].tolist()
+            if not idx:
+                return
+            slots = refill_slot_rung(len(idx), self.num_envs)
+            if not self.async_refill:
+                with span("megaverse.refill.wait"):
+                    batch = self._generate(idx, pad_to=slots)
+                self._apply_refill(idx, batch)
+                return
+            if self._pool is None:
+                # one worker: per-env generator streams advance in submission order
+                self._pool = ThreadPoolExecutor(1, thread_name_prefix=f"gen-{self.name}")
+            self._pending = self._pool.submit(
+                lambda: (idx, self._generate(idx, pad_to=slots)))
 
     def _apply_refill(self, idx, batch) -> None:
         # fixed slot ladder, padded host-side; the sentinel rows (index
@@ -383,8 +387,9 @@ class _Task:
         slot_idx = np.concatenate([np.asarray(idx, np.int64),
                                    np.full((slots - n,), self.num_envs, np.int64)])
         # in place: the learner's tick graphs hold these buffers
-        tree_scatter_(self.next_scenes, slot_idx,
-                      scene_to_device(batch, self.device, non_blocking=True))
+        with span("megaverse.refill.upload"):
+            tree_scatter_(self.next_scenes, slot_idx,
+                          scene_to_device(batch, self.device, non_blocking=True))
         if self._bucket_grew():
             self.bucket = self._bucket_for(margin=1.5)
             self.learner.render_bucket = self.bucket
@@ -522,22 +527,23 @@ def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: 
         torch.cuda.reset_peak_memory_stats(device)
     if observer is not None:
         observer(0, tasks, None)
-    rollout_ms, update_ms = [], []
+    # rollout and update times: device ms (CUDA events) on a card, host ms on
+    # the CPU, read at the log interval and at the end
+    timer = IntervalTimer(device)
+    spans_before = tprof().totals()
     metrics, task_metrics = {}, {}
     t0 = time.perf_counter()
     it = 0
     while steps_done < total:
         task = tasks[it % len(tasks)]
         ls = task.ls._replace(params=params, opt_state=opt_state)
-        _sync(device)
-        t_start = time.perf_counter()
+        t_start = timer.stamp()
         ls, batch = task.runner.collect_rollout(ls, task.next_scenes, task.shaping)
-        _sync(device)
-        t_mid = time.perf_counter()
+        t_mid = timer.stamp()
         ls, metrics = task.runner._update_from_batch(ls, batch)
-        _sync(device)
-        rollout_ms.append(1e3 * (t_mid - t_start))
-        update_ms.append(1e3 * (time.perf_counter() - t_mid))
+        t_end = timer.stamp()
+        timer.add("rollout", t_start, t_mid)
+        timer.add("update", t_mid, t_end)
         task.ls = ls
         task_metrics[task.name] = metrics
         params, opt_state = ls.params, ls.opt_state
@@ -554,12 +560,13 @@ def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: 
             observer(it, tasks, metrics)
 
         if it % 10 == 0:
+            ms = timer.read()
             m = {k: float(v) for k, v in metrics.items()}
             sps = (steps_done - start_steps) / (time.perf_counter() - t0)
             log(f"steps {steps_done:,}  {sps:,.0f} env-steps/s  "
                 f"task {task.name}  loss {m['loss']:.4f}  "
                 f"reward {m['reward_mean']:.4f}  entropy {m['entropy']:.3f}  "
-                f"rollout {rollout_ms[-1]:.1f} ms  update {update_ms[-1]:.1f} ms",
+                f"rollout {ms['rollout'][-1]:.1f} ms  update {ms['update'][-1]:.1f} ms",
                 flush=True)
 
         if steps_done - last_save >= args.save_every_steps:
@@ -568,6 +575,7 @@ def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: 
                 save_checkpoint(ckpt_path, params, opt_state, steps_done)
             log(f"saved checkpoint at {steps_done:,} steps", flush=True)
 
+    ms = timer.read()
     seconds = time.perf_counter() - t0
     if steps_done > last_save and lead:
         save_checkpoint(ckpt_path, params, opt_state, steps_done)
@@ -589,7 +597,10 @@ def _train(args, cfg: TrainConfig, tasks, device, num_envs: int, setup_seconds: 
         "samples_per_s": trained * agents / seconds if seconds > 0 else None,
         # update it ran tasks[it % len(tasks)]
         "tasks": [t.name for t in tasks],
-        "rollout_ms": rollout_ms, "update_ms": update_ms,
+        "rollout_ms": ms["rollout"], "update_ms": ms["update"],
+        # the update loop's spans (utils/logging.span): host seconds and calls
+        "spans": {name: {"seconds": sec, "calls": n}
+                  for name, (sec, n) in tprof().totals(since=spans_before).items()},
         "device_memory_after_setup_bytes": memory_after_setup,
         "setup_peak_device_memory_bytes": setup_peak,
         # of the update loop alone

@@ -36,6 +36,14 @@ this launch-bound step every class adds its own cull prologue and B2 launch.
 Turning them on by default waits for a benchmark cell that shows a gain. With
 classes on the tick stays eager: the class groups change shape at every
 refill.
+
+Spans (`utils/logging.span`, on the stepping thread only): "megaverse.step_many"
+(a chunk's queueing, its ticks' "megaverse.tick" inside), "megaverse.refill"
+(a refill, before or after the chunk) with "megaverse.refill.poll" (the wait
+for the done bits), "megaverse.refill.wait" (the layouts from the prefetch
+threads, or made inline), "megaverse.refill.stack" and two
+"megaverse.refill.upload" (the host-to-device copy, then the scatter into
+the bound buffer). `layout_seconds` counts wait, stack and the first upload.
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ from megaverse_tpu_torch.types import (
     state_from_scene,
     tree_scatter_,
 )
+from megaverse_tpu_torch.utils.logging import span
 from megaverse_tpu_torch.utils.refrng import Rng, episode_reseed, fan_out_env_seeds
 
 # How many steps may elapse between done-flag inspections on the host. Must be
@@ -450,14 +459,17 @@ class VectorEnv:
         device, one buffer per leaf; `pad_to` repeats the first layout
         host-side up to a fixed row count so refills come in few shapes."""
         t0 = time.perf_counter()
-        scenes = [self._pop_scene(i) for i in env_indices]
-        self._note_layout_counts(scenes)
-        if self._use_classes:
-            self._last_gen_rows = self._layout_rows(
-                np.stack([sc.box_color for sc in scenes]),
-                np.stack([sc.props.type for sc in scenes]))
-        batch = scene_to_device(stack_scenes(scenes, pad_to=pad_to), self.device,
-                                non_blocking=True)
+        with span("megaverse.refill.wait"):
+            scenes = [self._pop_scene(i) for i in env_indices]
+        with span("megaverse.refill.stack"):
+            self._note_layout_counts(scenes)
+            if self._use_classes:
+                self._last_gen_rows = self._layout_rows(
+                    np.stack([sc.box_color for sc in scenes]),
+                    np.stack([sc.props.type for sc in scenes]))
+            stacked = stack_scenes(scenes, pad_to=pad_to)
+        with span("megaverse.refill.upload"):
+            batch = scene_to_device(stacked, self.device, non_blocking=True)
         self.layout_seconds += time.perf_counter() - t0
         return batch
 
@@ -577,22 +589,23 @@ class VectorEnv:
         if not overlap:
             self._refill_consumed_slots()
 
-        if torch.is_tensor(action_pool):
-            pool = action_pool.to(device=self.device, dtype=torch.int32)
-        else:
-            pool = torch.from_numpy(np.ascontiguousarray(action_pool, np.int32))
-            if self.device.type == "cuda":
-                pool = pool.pin_memory().to(self.device, non_blocking=True)
-        dones = []
-        obs = None
-        for i in range(n_steps):
-            obs, _, done, _ = self._advance(pool[i % pool.shape[0]])
-            dones.append(self._fresh(done))
-        obs = self._empty_obs() if obs is None else self._fresh(obs)
-        self._steps_since_poll = 0  # refilled at next step_many/flush
-        # One checksum per chunk; it depends on the final obs, whose chain
-        # covers every step in the chunk.
-        csum = obs.sum(dtype=torch.int64)
+        with span("megaverse.step_many"):
+            if torch.is_tensor(action_pool):
+                pool = action_pool.to(device=self.device, dtype=torch.int32)
+            else:
+                pool = torch.from_numpy(np.ascontiguousarray(action_pool, np.int32))
+                if self.device.type == "cuda":
+                    pool = pool.pin_memory().to(self.device, non_blocking=True)
+            dones = []
+            obs = None
+            for i in range(n_steps):
+                obs, _, done, _ = self._advance(pool[i % pool.shape[0]])
+                dones.append(self._fresh(done))
+            obs = self._empty_obs() if obs is None else self._fresh(obs)
+            self._steps_since_poll = 0  # refilled at next step_many/flush
+            # One checksum per chunk; it depends on the final obs, whose chain
+            # covers every step in the chunk.
+            csum = obs.sum(dtype=torch.int64)
         if overlap:
             self._overlap_refill_tick()
         return obs, dones, [csum]
@@ -618,11 +631,12 @@ class VectorEnv:
         return packed
 
     def _refill_consumed_slots(self) -> None:
-        self._steps_since_poll = 0
-        self._apply_refill_bits(self._take_refill_stash())
-        packed = self._take_pending()
-        if packed is not None:
-            self._apply_refill_bits(self._fetch_bits(packed))
+        with span("megaverse.refill"):
+            self._steps_since_poll = 0
+            self._apply_refill_bits(self._take_refill_stash())
+            packed = self._take_pending()
+            if packed is not None:
+                self._apply_refill_bits(self._fetch_bits(packed))
 
     # -- refill overlap machinery --------------------------------------------
     # The packed done-bits of chunk N are computed as a device op queued right
@@ -657,12 +671,13 @@ class VectorEnv:
         right behind its steps + asynchronous host copy), then resolve the
         PREVIOUS chunk's stash into generation + upload + scatter while this
         chunk runs on the device."""
-        deferred = self._take_refill_stash()
-        packed = self._take_pending()
-        if packed is not None:
-            self._deferred_refill = self._fetch_bits(packed)
-        self._apply_refill_bits(deferred)
-        self._steps_since_poll = 0
+        with span("megaverse.refill"):
+            deferred = self._take_refill_stash()
+            packed = self._take_pending()
+            if packed is not None:
+                self._deferred_refill = self._fetch_bits(packed)
+            self._apply_refill_bits(deferred)
+            self._steps_since_poll = 0
 
     def _take_refill_stash(self):
         stash = self._deferred_refill
@@ -673,9 +688,10 @@ class VectorEnv:
         if stash is None:
             return
         host, event = stash
-        if event is not None:
-            event.synchronize()   # waits for that copy only, not for the stream
-        dones = np.unpackbits(host.numpy(), bitorder="little")[: self.num_envs]
+        with span("megaverse.refill.poll"):
+            if event is not None:
+                event.synchronize()   # waits for that copy only, not for the stream
+            dones = np.unpackbits(host.numpy(), bitorder="little")[: self.num_envs]
         idx = np.nonzero(dones)[0]
         if idx.size == 0:
             return
@@ -688,7 +704,8 @@ class VectorEnv:
                                    np.full((slots - n,), self.num_envs, np.int64)])
         # in place, into the bound buffer: the scatter is queued behind the
         # ticks already on the stream, which read the slots before it lands
-        tree_scatter_(self.next_scenes, slot_idx, new_scenes)
+        with span("megaverse.refill.upload"):
+            tree_scatter_(self.next_scenes, slot_idx, new_scenes)
         if self._use_classes:
             # done envs consumed their buffered layout; the new one is buffered
             self._cls_rows_cur[idx] = self._cls_rows_buf[idx]

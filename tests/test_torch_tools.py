@@ -154,7 +154,7 @@ def test_logging_levels_and_profiler():
         TLOG.log().setLevel(level)
     prof = TLOG.Profiler()
     for _ in range(2):
-        with prof.timed("x"):
+        with prof.span("x"):
             pass
     assert prof.summary().startswith("x: ") and "2 calls" in prof.summary()
 
