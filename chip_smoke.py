@@ -1,9 +1,9 @@
 """On-card smoke check of the PyTorch/CUDA port (megaverse_tpu_torch).
 
 Run `python3 chip_smoke.py` on a machine with one NVIDIA GPU (built for
-sm_90a, i.e. an H100). It builds the render kernel and the deferred reset's
-masked-copy kernel from megaverse_tpu_torch/csrc with nvcc (one process per
-source, at once), then
+sm_90a, i.e. an H100). It builds the render kernel, the deferred reset's
+masked-copy kernel and the character controller's kernel (csrc/kcc.cu) from
+megaverse_tpu_torch/csrc with nvcc (one process per source, at once), then
 
   1. prints the machine (card, power limit, torch/CUDA/nvcc versions, build
      seconds);
@@ -77,7 +77,8 @@ source, at once), then
      ticks from one snapshot eagerly (under the same sync check) and
      captured, with forced time-outs, a refill into the layout buffer and a
      larger render bucket (a re-capture) inside: obs, dones and every state
-     leaf bit for bit equal; then the step captured and eager in this call
+     leaf bit for bit equal, the KCC kernel launched once per tick either
+     way; then the step captured and eager in this call
      (ms, obs/s, host ops and graph replays per step, device kernels per
      step, captures, peak memory); on the Collect env one tick of each form
      B1-B6 captured against eager the same way, and 4 ticks eager and
@@ -85,7 +86,13 @@ source, at once), then
      a replay (the replay's cached render constants must stay its own);
      the masked copy against its
      plain version on ObstaclesHard's layout leaves with none, 8 and all
-     1,024 envs done, bit for bit, and timed. Then ObstaclesMedium, ObstaclesSteps,
+     1,024 envs done, bit for bit, and timed; the KCC kernel
+     (ops/kcc.physics_step) against its plain version (player_step, then
+     resolve_agent_collisions) on one tick from the end states of Collect,
+     ObstaclesHard (terrain, falls) and HexMemory (rotated walls) 1024 x 1
+     and TowerBuilding 256 x 4 (agent collisions): pos, vvel and hvel bit
+     for bit, jumping and on_ground equal, both timed (`kcc_check`); every
+     run's KCC launches == its ticks. Then ObstaclesMedium, ObstaclesSteps,
      ObstaclesWalls and ObstaclesLava (OBSTACLES_VARIANTS) at VARIANT_ENVS x 1
      the same way (2 chunks), each held at its end state: every form equal
      to B1, each within the tolerance of its own plain version, B2 timed;
@@ -141,8 +148,9 @@ The phases run in the order 1, 2, 3, 4, 6, 5; every phase line carries
 only, `--phase parallel` steps 1 and 6 only, `--phase bench` step 1 and
 step 3's TowerBuilding run, `--phase obstacles` step 1 and step 3's
 Obstacles variants, `--phase capture` step 1 and step 3b on TowerBuilding
-and Collect 1024 x 1 driven for 2 chunks each (none of them prints the
-result line).
+and Collect 1024 x 1 driven for 2 chunks each, `--phase kcc` step 1 and the
+KCC kernel's check on its four end states (KCC_RUNS) driven for 2 chunks
+each (none of them prints the result line).
 
 Any failed check raises and the script exits non-zero. The last line of the
 output is {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -179,6 +187,17 @@ MASKED_COPY_SOURCE = "megaverse_tpu_torch/csrc/masked_copy.cu"
 # the deferred reset's masked copy replaces no TPU kernel: the reference's
 # apply_deferred_resets is plain JAX (a K-slot scatter under lax.cond)
 MASKED_COPY_REPLACES = "megaverse_tpu/env.py:168 (apply_deferred_resets; plain JAX, no TPU kernel)"
+KCC_SOURCE = "megaverse_tpu_torch/csrc/kcc.cu"
+KCC_REPLACES = ("megaverse_tpu/ops/physics.py:296,519 (player_step, resolve_agent_collisions; "
+                "plain JAX, no TPU kernel)")
+# the KCC kernel's check (`kcc_check`): the main path's runs whose end states
+# it starts from, (label, scenario, envs, agents, chunk, chunks, params):
+# terrain and falls, rotated walls, four agents per env, and the cells' scene
+KCC_RUNS = (("collect_1024x1", "Collect", 1024, 1, 64, 2, None),
+            ("obstacleshard_1024x1", "ObstaclesHard", 1024, 1, 64, 2, None),
+            ("hexmemory_1024x1", "HexMemory", 1024, 1, 64, 2, None),
+            ("tower_256x4_short_episodes", "TowerBuilding", 256, 4, 24, 22,
+             {"episodeLengthSec": 4.0}))
 # the reference kernel body and, per form, the lines of its traversal
 REPLACES = {
     "render_b1": "megaverse_tpu/ops/raycast_pallas.py:931",
@@ -374,6 +393,15 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
+def ptxas_kcc(builds: dict) -> str:
+    """The KCC kernel's registers and spill stores from its build's `-Xptxas
+    -v` output ("" where the build was found from an earlier one)."""
+    log = builds.get("kcc", {}).get("log") or ""
+    regs = re.findall(r"Used (\d+) registers", log)
+    spills = re.findall(r"(\d+) bytes spill stores", log)
+    return f"{regs[0]} registers, {spills[0] if spills else 0} B spill stores" if regs else ""
+
+
 def channel_diff(a: torch.Tensor, b: torch.Tensor):
     """Packed images -> (largest per-channel abs difference, fraction of pixels
     that differ at all)."""
@@ -460,12 +488,16 @@ class Smoke:
         # the masked copy's launches on the main path, and its timings
         self.mc_launches = 0
         self.mc_row = None
+        # the KCC kernel's launches on the main path, and its readings by run
+        self.kcc_launches = 0
+        self.kcc_cases = {}
 
     def reset_counts(self) -> None:
         self.RC.reset_launch_counts()
 
     # ------------------------------------------------------------- phase 1
     def machine(self) -> None:
+        from megaverse_tpu_torch.ops import kcc as K
         from megaverse_tpu_torch.utils import native
         RC = self.RC
         # The hex scenes' layouts search the maze's portals for visibility:
@@ -477,8 +509,9 @@ class Smoke:
         # every kernel source built at once, one nvcc each
         from concurrent.futures import ThreadPoolExecutor
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(2) as pool:
-            for fut in [pool.submit(RC.load_library), pool.submit(self.MC.load_library)]:
+        with ThreadPoolExecutor(3) as pool:
+            for fut in [pool.submit(RC.load_library), pool.submit(self.MC.load_library),
+                        pool.submit(K.load_library)]:
                 fut.result()
         nvcc = subprocess.run([RC.BUILD_INFO["nvcc"], "--version"],
                               capture_output=True, text=True).stdout.strip().splitlines()
@@ -491,7 +524,8 @@ class Smoke:
               "native_library": have_native, "native_seconds": native_seconds,
               "ptxas": ptxas_summary(builds.get("render", {}).get("log") or ""),
               "ptxas_masked_copy": re.findall(r"Used \d+ registers[^\n]*",
-                                              builds.get("masked_copy", {}).get("log") or "")})
+                                              builds.get("masked_copy", {}).get("log") or ""),
+              "ptxas_kcc": ptxas_kcc(builds)})
         if not have_native:
             raise AssertionError("the native host library (native/build.sh) did not "
                                  "build or load: hex layouts would take the python "
@@ -860,6 +894,10 @@ class Smoke:
             if n != want:
                 raise AssertionError(f"{label}: {n} masked copies, expected {want}")
             self.mc_launches += n
+            n = self.RC.LAUNCHES["kcc"]
+            if n != ticks:
+                raise AssertionError(f"{label}: {n} KCC launches, expected {ticks}")
+            self.kcc_launches += n
         shape = (env.num_envs, env.num_agents_per_env, 72, 128)
         if obs.dtype != torch.int32 or tuple(obs.shape) != shape:
             raise AssertionError(f"{label}: obs {obs.dtype} {tuple(obs.shape)}")
@@ -933,8 +971,8 @@ class Smoke:
         # 42 the first envs time out at step 480. 22 chunks of 24 steps (the
         # overlapped-refill path: 2 * 24 < 60) see them finish, restart from
         # the layout buffer and get their slots refilled.
-        self.drive("tower_256x4_short_episodes", "TowerBuilding", 256, 4, 24, 22,
-                   params={"episodeLengthSec": 4.0}, expect_refill=True)
+        tower4 = self.drive("tower_256x4_short_episodes", "TowerBuilding", 256, 4, 24, 22,
+                            params={"episodeLengthSec": 4.0}, expect_refill=True, keep=True)
         # The same for the other scenario states.
         # Collect episodes last episodeLengthSec + 2 s per reward diamond
         # (>= 1), so with 4 s the shortest is 6 s = 90 steps: 8 chunks of 24
@@ -988,6 +1026,10 @@ class Smoke:
         # the captured tick against the eager one, on these envs (phase 3b)
         self.capture_phase({"TowerBuilding": tower, "Empty": empty, "Collect": collect,
                             "ObstaclesHard": hard, **new_envs, **hex_envs})
+        self.kcc_phase({"collect_1024x1": collect, "obstacleshard_1024x1": hard,
+                        "hexmemory_1024x1": hex_envs["HexMemory"],
+                        "tower_256x4_short_episodes": tower4})
+        del tower4
         return tower, collect, {**new_envs, **hex_envs}
 
     def obstacles_variants(self) -> dict:
@@ -1404,6 +1446,10 @@ class Smoke:
             raise AssertionError(f"{label}: {self.RC.LAUNCHES['masked_copy']} masked "
                                  f"copies, expected {steps}")
         self.mc_launches += steps
+        if self.RC.LAUNCHES["kcc"] != steps:
+            raise AssertionError(f"{label}: {self.RC.LAUNCHES['kcc']} KCC launches, "
+                                 f"expected {steps}")
+        self.kcc_launches += steps
         if not res.finite:
             raise AssertionError(f"{label}: non-finite values in the final state")
         if np.unique(res.checksums).size < 2:
@@ -1524,6 +1570,9 @@ class Smoke:
         mc = launches.get("masked_copy", 0)
         if mc != (2 * ticks if should_defer_reset(env.scenario) else 0):
             raise AssertionError(f"{label}: {mc} masked copies in 2 x {ticks} ticks")
+        if launches.get("kcc", 0) != 2 * ticks:
+            raise AssertionError(f"{label}: {launches.get('kcc', 0)} KCC launches in "
+                                 f"2 x {ticks} ticks")
         line = {"phase": "capture_vs_eager", "run": label, "scenario": env.scenario.name,
                 "envs": env.num_envs, "agents": env.num_agents_per_env, "ticks": ticks,
                 "render_mode": vars(env.render_mode if mode is None else mode),
@@ -1718,6 +1767,74 @@ class Smoke:
               "cases": cases, "equal": "bit for bit", "gpu": self.smi})
         del base
         torch.cuda.empty_cache()
+
+    def kcc_check(self, label, env) -> None:
+        """The KCC kernel (`K.physics_step` on the card) against its plain
+        version (`K.physics_step_plain`: player_step, then
+        resolve_agent_collisions) on one tick from a driven env's end state:
+        the agents after that tick's controls (the action pool's first row)
+        and the scenario's preStep, as `env_step` hands them to the physics.
+        pos, vvel and hvel bit for bit, jumping and on_ground equal, one
+        launch. Both timed as replays of a graph of their launches
+        (`time_graph`), with the bound: each agent's row read and written
+        once, the column words of its 3 x 3 window and its env's walls read
+        once, over the card's memory rate. The line also counts what the
+        tick exercised: agents the slide held back, agents the walls pushed
+        (player_step with and without them), agents pushed by other agents."""
+        import megaverse_tpu_torch.constants as C
+        from megaverse_tpu_torch.ops import kcc as K
+        from megaverse_tpu_torch.ops import physics as P
+        from megaverse_tpu_torch.types import tree_map
+        env.flush()
+        scen, cfg = env.scenario, env.scenario.cfg
+        dt = cfg.dt
+        state = tree_map(torch.clone, env.state)
+        act = torch.from_numpy(self.action_pool(env.num_envs, env.num_agents_per_env)[0])
+        act = act.to(self.dev)
+        agents = P.apply_look(state.agents, act, dt, cfg.param(C.P_VERTICAL_LOOK_LIMIT))
+        agents = P.apply_acceleration(agents, act, dt)
+        state = scen.pre_physics(state.replace(agents=agents), act)
+        agents, cols, obbs = state.agents, state.cols, scen.collision_obbs(state)
+        before = self.RC.LAUNCHES["kcc"]
+        got = K.physics_step(cfg.grid, agents, dt, cols, obbs)
+        launched = self.RC.LAUNCHES["kcc"] - before
+        want = K.physics_step_plain(cfg.grid, agents, dt, cols, obbs)
+        stepped = P.player_step(cfg.grid, agents, dt, cols=cols, obbs=obbs)
+        no_walls = P.player_step(cfg.grid, agents, dt, cols=cols)
+        torch.cuda.synchronize()
+        err = {k: float((getattr(got, k) - getattr(want, k)).abs().max())
+               for k in ("pos", "vvel", "hvel")}
+        for k in ("pos", "vvel", "hvel", "jumping", "on_ground"):
+            if not torch.equal(getattr(got, k), getattr(want, k)):
+                raise AssertionError(f"{label}: KCC kernel {k} differs from its plain "
+                                     f"version (max {err})")
+        if launched != 1:
+            raise AssertionError(f"{label}: {launched} KCC launches for one call")
+        free = agents.pos[..., 0::2] + agents.hvel[..., 0::2] * dt
+        b, a = agents.pos.shape[:2]
+        w = 0 if obbs is None else obbs.shape[1]
+        nw = cols.shape[2]
+        nbytes = 2 * b * a * (4 * 7 + 2) + 4 * b * a * 9 * nw + 4 * b * w * 7
+        case = dict(
+            envs=b, agents=a, walls=w, max_abs_err=max(err.values()), equal="bit for bit",
+            slid=int((stepped.pos[..., 0::2] != free).any(-1).sum()),
+            walls_pushed=int((stepped.pos != no_walls.pos).any(-1).sum()),
+            agents_pushed=int((want.pos != stepped.pos).any(-1).sum()),
+            landed=int(want.on_ground.sum()),
+            ms=time_graph(lambda: K.physics_step(cfg.grid, agents, dt, cols, obbs), 20),
+            plain_ms=time_graph(lambda: K.physics_step_plain(cfg.grid, agents, dt, cols,
+                                                             obbs), 3),
+            bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes")
+        self.kcc_cases[label] = case
+        emit({"phase": "kcc_vs_plain", "run": label, "scenario": scen.name, **case,
+              "launches_main_path_so_far": self.kcc_launches, "gpu": self.smi})
+        del state, agents, got, want, stepped, no_walls
+        torch.cuda.empty_cache()
+
+    def kcc_phase(self, envs: dict) -> None:
+        """`kcc_check` on each run of KCC_RUNS (label -> its env)."""
+        for label, *_ in KCC_RUNS:
+            self.kcc_check(label, envs[label])
 
     def capture_phase(self, envs: dict) -> None:
         """The captured tick against the eager one on the main path's 1024 x 1
@@ -1924,6 +2041,15 @@ class Smoke:
         rows.append({"name": "masked_copy", "route": "cuda", "source": MASKED_COPY_SOURCE,
                      "replaces": MASKED_COPY_REPLACES, "launches": self.mc_launches,
                      "library_ms": None, **self.mc_row})
+        # the character controller's kernel (replaces no TPU kernel either),
+        # checked and timed at the end states of KCC_RUNS in phase 3b
+        kcc = {"name": "kcc", "route": "cuda", "source": KCC_SOURCE, "replaces": KCC_REPLACES,
+               "launches": self.kcc_launches, "library_ms": None, "bound_by": "bytes",
+               "max_abs_err": max(c["max_abs_err"] for c in self.kcc_cases.values())}
+        for label, c in self.kcc_cases.items():
+            kcc.update({f"ms_{label}": c["ms"], f"plain_ms_{label}": c["plain_ms"],
+                        f"bound_ms_{label}": c["bound_ms"]})
+        rows.append(kcc)
         for r in rows:
             if r["launches"] < 1:
                 raise AssertionError(f"{r['name']} was never launched on the main path")
@@ -1935,13 +2061,14 @@ def main() -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--phase", default="all",
                     choices=["all", "kernels", "train", "parallel", "bench", "obstacles",
-                             "capture"],
+                             "capture", "kcc"],
                     help="'kernels' stops after the kernel-vs-plain comparison, "
                          "'train' runs only the training paths, 'parallel' only "
                          "the data-parallel checks, 'bench' only the TowerBuilding "
                          "run through the sampling benchmark, 'obstacles' only the "
                          "Obstacles variants' runs, 'capture' the captured-vs-eager "
-                         "checks on two envs (none of them prints the result line)")
+                         "checks on two envs, 'kcc' the KCC kernel's check on its four "
+                         "end states (none of them prints the result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check only runs on the GPU",
@@ -1973,6 +2100,10 @@ def main() -> int:
         envs = {name: smoke.drive(f"{name.lower()}_1024x1", name, 1024, 1, 64, 2, keep=True)
                 for name in ("TowerBuilding", "Collect")}
         smoke.capture_phase(envs)
+        return 0
+    if args.phase == "kcc":
+        smoke.kcc_phase({run[0]: smoke.drive(*run[:6], params=run[6], keep=True)
+                         for run in KCC_RUNS})
         return 0
     smoke.kernels_vs_plain()
     if args.phase == "kernels":

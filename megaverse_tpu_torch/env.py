@@ -17,6 +17,7 @@ from typing import Mapping, NamedTuple, Optional
 import torch
 
 from megaverse_tpu_torch import constants as C
+from megaverse_tpu_torch.ops import kcc as K
 from megaverse_tpu_torch.ops import masked_copy as MC
 from megaverse_tpu_torch.ops import physics as P
 from megaverse_tpu_torch.ops import raycast_cuda as RC
@@ -78,8 +79,7 @@ def env_step(
     # voxel-mutating scenarios).
     cols = state.cols
     obbs = scenario.collision_obbs(state)
-    agents = P.player_step(cfg.grid, state.agents, dt, cols=cols, obbs=obbs)
-    agents = P.resolve_agent_collisions(agents, cfg.grid, cols=cols, obbs=obbs)
+    agents = K.physics_step(cfg.grid, state.agents, dt, cols, obbs)
     state = state.replace(agents=agents)
 
     # Scenario logic + rewards (env.cpp:131).

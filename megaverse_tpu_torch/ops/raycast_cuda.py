@@ -101,12 +101,12 @@ B3_BATCH = 32
 FRAME_K = 64
 VISIT_SEGMENTS = TILE_W // 32
 
-# Launch counts of the port's hand-written kernels, one per render form and
-# one for the masked copy (ops/masked_copy.py): each wrapper adds one where it
-# launches its kernel, nowhere else. A merged launch counts as B6 whatever it
-# traverses.
+# Launch counts of the port's hand-written kernels, one per render form, one
+# for the masked copy (ops/masked_copy.py) and one for the character
+# controller (ops/kcc.py): each wrapper adds one where it launches its kernel,
+# nowhere else. A merged launch counts as B6 whatever it traverses.
 FORMS = ("render_b1", "render_b2", "render_b3", "render_b4", "render_b5", "render_b6")
-LAUNCHES = {name: 0 for name in FORMS + ("masked_copy",)}
+LAUNCHES = {name: 0 for name in FORMS + ("masked_copy", "kcc")}
 
 
 def reset_launch_counts() -> None:
