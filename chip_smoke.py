@@ -2,8 +2,9 @@
 
 Run `python3 chip_smoke.py` on a machine with one NVIDIA GPU (built for
 sm_90a, i.e. an H100). It builds the render kernel, the deferred reset's
-masked-copy kernel and the character controller's kernel (csrc/kcc.cu) from
-megaverse_tpu_torch/csrc with nvcc (one process per source, at once), then
+masked-copy kernel, the character controller's kernel (csrc/kcc.cu) and the
+object-stacking kernel (csrc/stacking.cu) from megaverse_tpu_torch/csrc with
+nvcc (one process per source, at once), then
 
   1. prints the machine (card, power limit, torch/CUDA/nvcc versions, build
      seconds);
@@ -92,7 +93,14 @@ megaverse_tpu_torch/csrc with nvcc (one process per source, at once), then
      ObstaclesHard (terrain, falls) and HexMemory (rotated walls) 1024 x 1
      and TowerBuilding 256 x 4 (agent collisions): pos, vvel and hvel bit
      for bit, jumping and on_ground equal, both timed (`kcc_check`); every
-     run's KCC launches == its ticks. Then ObstaclesMedium, ObstaclesSteps,
+     run's KCC launches == its ticks; the stacking kernel
+     (components.object_stacking_step on the card) against its plain version
+     (object_stacking_step_plain) on two ticks of every agent pressing
+     Interact from the end states of Collect, ObstaclesHard and Rearrange
+     (its place zone) 1024 x 1 and TowerBuilding 256 x 4 (four passes, its
+     zone): every leaf it writes, picked, placed and place_voxel bit for bit,
+     both timed (`stacking_check`); every run's stacking launches == its
+     ticks on the ten scenes with stacking (STACKING_SCENES), 0 elsewhere. Then ObstaclesMedium, ObstaclesSteps,
      ObstaclesWalls and ObstaclesLava (OBSTACLES_VARIANTS) at VARIANT_ENVS x 1
      the same way (2 chunks), each held at its end state: every form equal
      to B1, each within the tolerance of its own plain version, B2 timed;
@@ -150,7 +158,8 @@ step 3's TowerBuilding run, `--phase obstacles` step 1 and step 3's
 Obstacles variants, `--phase capture` step 1 and step 3b on TowerBuilding
 and Collect 1024 x 1 driven for 2 chunks each, `--phase kcc` step 1 and the
 KCC kernel's check on its four end states (KCC_RUNS) driven for 2 chunks
-each (none of them prints the result line).
+each, `--phase stacking` step 1 and the stacking kernel's check on its four
+end states (STACKING_RUNS) (none of them prints the result line).
 
 Any failed check raises and the script exits non-zero. The last line of the
 output is {"ok": true, "device": {...}}. It imports nothing of JAX.
@@ -198,6 +207,19 @@ KCC_RUNS = (("collect_1024x1", "Collect", 1024, 1, 64, 2, None),
             ("hexmemory_1024x1", "HexMemory", 1024, 1, 64, 2, None),
             ("tower_256x4_short_episodes", "TowerBuilding", 256, 4, 24, 22,
              {"episodeLengthSec": 4.0}))
+STACKING_SOURCE = "megaverse_tpu_torch/csrc/stacking.cu"
+STACKING_REPLACES = ("megaverse_tpu/scenarios/components.py (object_stacking_step; "
+                     "plain JAX, no TPU kernel)")
+# the scenes whose tick runs the stacking component: one stacking launch a
+# tick there, none elsewhere
+STACKING_SCENES = ("Collect", "Test", "ObstaclesEasy", "ObstaclesMedium", "ObstaclesHard",
+                   "ObstaclesWalls", "ObstaclesSteps", "ObstaclesLava", "Rearrange",
+                   "TowerBuilding")
+# the stacking kernel's check (`stacking_check`): the runs whose end states it
+# starts from, as KCC_RUNS: one agent, terrain, a place zone on every env, and
+# four sequential passes with TowerBuilding's zone
+STACKING_RUNS = (KCC_RUNS[0], KCC_RUNS[1],
+                 ("rearrange_1024x1", "Rearrange", 1024, 1, 64, 2, None), KCC_RUNS[3])
 # the reference kernel body and, per form, the lines of its traversal
 REPLACES = {
     "render_b1": "megaverse_tpu/ops/raycast_pallas.py:931",
@@ -393,10 +415,10 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-def ptxas_kcc(builds: dict) -> str:
-    """The KCC kernel's registers and spill stores from its build's `-Xptxas
-    -v` output ("" where the build was found from an earlier one)."""
-    log = builds.get("kcc", {}).get("log") or ""
+def ptxas_single(builds: dict, stem: str) -> str:
+    """A one-kernel source's registers and spill stores from its build's
+    `-Xptxas -v` output ("" where the build was found from an earlier one)."""
+    log = builds.get(stem, {}).get("log") or ""
     regs = re.findall(r"Used (\d+) registers", log)
     spills = re.findall(r"(\d+) bytes spill stores", log)
     return f"{regs[0]} registers, {spills[0] if spills else 0} B spill stores" if regs else ""
@@ -491,6 +513,9 @@ class Smoke:
         # the KCC kernel's launches on the main path, and its readings by run
         self.kcc_launches = 0
         self.kcc_cases = {}
+        # the same for the stacking kernel
+        self.stacking_launches = 0
+        self.stacking_cases = {}
 
     def reset_counts(self) -> None:
         self.RC.reset_launch_counts()
@@ -498,6 +523,7 @@ class Smoke:
     # ------------------------------------------------------------- phase 1
     def machine(self) -> None:
         from megaverse_tpu_torch.ops import kcc as K
+        from megaverse_tpu_torch.ops import stacking as S
         from megaverse_tpu_torch.utils import native
         RC = self.RC
         # The hex scenes' layouts search the maze's portals for visibility:
@@ -509,9 +535,9 @@ class Smoke:
         # every kernel source built at once, one nvcc each
         from concurrent.futures import ThreadPoolExecutor
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(3) as pool:
+        with ThreadPoolExecutor(4) as pool:
             for fut in [pool.submit(RC.load_library), pool.submit(self.MC.load_library),
-                        pool.submit(K.load_library)]:
+                        pool.submit(K.load_library), pool.submit(S.load_library)]:
                 fut.result()
         nvcc = subprocess.run([RC.BUILD_INFO["nvcc"], "--version"],
                               capture_output=True, text=True).stdout.strip().splitlines()
@@ -525,7 +551,8 @@ class Smoke:
               "ptxas": ptxas_summary(builds.get("render", {}).get("log") or ""),
               "ptxas_masked_copy": re.findall(r"Used \d+ registers[^\n]*",
                                               builds.get("masked_copy", {}).get("log") or ""),
-              "ptxas_kcc": ptxas_kcc(builds)})
+              "ptxas_kcc": ptxas_single(builds, "kcc"),
+              "ptxas_stacking": ptxas_single(builds, "stacking")})
         if not have_native:
             raise AssertionError("the native host library (native/build.sh) did not "
                                  "build or load: hex layouts would take the python "
@@ -898,6 +925,11 @@ class Smoke:
             if n != ticks:
                 raise AssertionError(f"{label}: {n} KCC launches, expected {ticks}")
             self.kcc_launches += n
+            n = self.RC.LAUNCHES["stacking"]
+            want = ticks if env.scenario.name in STACKING_SCENES else 0
+            if n != want:
+                raise AssertionError(f"{label}: {n} stacking launches, expected {want}")
+            self.stacking_launches += n
         shape = (env.num_envs, env.num_agents_per_env, 72, 128)
         if obs.dtype != torch.int32 or tuple(obs.shape) != shape:
             raise AssertionError(f"{label}: obs {obs.dtype} {tuple(obs.shape)}")
@@ -1029,6 +1061,9 @@ class Smoke:
         self.kcc_phase({"collect_1024x1": collect, "obstacleshard_1024x1": hard,
                         "hexmemory_1024x1": hex_envs["HexMemory"],
                         "tower_256x4_short_episodes": tower4})
+        self.stacking_phase({"collect_1024x1": collect, "obstacleshard_1024x1": hard,
+                             "rearrange_1024x1": new_envs["Rearrange"],
+                             "tower_256x4_short_episodes": tower4})
         del tower4
         return tower, collect, {**new_envs, **hex_envs}
 
@@ -1450,6 +1485,10 @@ class Smoke:
             raise AssertionError(f"{label}: {self.RC.LAUNCHES['kcc']} KCC launches, "
                                  f"expected {steps}")
         self.kcc_launches += steps
+        if self.RC.LAUNCHES["stacking"] != steps:     # TowerBuilding stacks boxes
+            raise AssertionError(f"{label}: {self.RC.LAUNCHES['stacking']} stacking "
+                                 f"launches, expected {steps}")
+        self.stacking_launches += steps
         if not res.finite:
             raise AssertionError(f"{label}: non-finite values in the final state")
         if np.unique(res.checksums).size < 2:
@@ -1836,6 +1875,111 @@ class Smoke:
         for label, *_ in KCC_RUNS:
             self.kcc_check(label, envs[label])
 
+    @staticmethod
+    def facing_boxes(state, zone, grid):
+        """`state` with agent 0 of every even env facing an object that has
+        nothing on top of it (inside the place zone where one is given): yaw
+        and pitch 0, the body placed so the pickup spot (0, 0.02, -1) from it
+        lies in the object's voxel. It picks the object up at the first tick
+        and puts it back down at the second; the odd envs keep the driven
+        state."""
+        vobj, agents = state.vobj, state.agents
+        b, nx, ny, nz = vobj.shape
+        dev = vobj.device
+        free = vobj != 0
+        free[:, :, :-1] &= vobj[:, :, 1:] == 0
+        if zone is not None:
+            x = torch.arange(nx, device=dev).view(1, nx, 1, 1)
+            z = torch.arange(nz, device=dev).view(1, 1, 1, nz)
+            zn = [zone[:, k].view(b, 1, 1, 1) for k in range(4)]
+            free &= (x >= zn[0]) & (x < zn[1]) & (z >= zn[2]) & (z < zn[3])
+        flat = free.reshape(b, -1)
+        moved = flat.any(dim=1) & (torch.arange(b, device=dev) % 2 == 0)
+        i = flat.to(torch.int32).argmax(dim=1)
+        cell = torch.stack([i // (ny * nz), (i // nz) % ny, i % nz], dim=-1).float()
+        body = (cell.new_tensor(grid.origin) + (cell + 0.5) * grid.voxel_size
+                + cell.new_tensor([0.0, -0.02, 1.0]))
+        pos, yaw, pitch = agents.pos.clone(), agents.yaw.clone(), agents.pitch.clone()
+        pos[:, 0] = torch.where(moved[:, None], body, pos[:, 0])
+        yaw[:, 0] = torch.where(moved, 0.0, yaw[:, 0])
+        pitch[:, 0] = torch.where(moved, 0.0, pitch[:, 0])
+        return state.replace(agents=agents.replace(pos=pos, yaw=yaw, pitch=pitch))
+
+    def stacking_check(self, label, env) -> None:
+        """The stacking kernel (`object_stacking_step` on the card) against
+        its plain version (`object_stacking_step_plain`) on two ticks from a
+        driven env's end state, every agent pressing Interact (so agents that
+        pick in the first tick place in the second), with the scene's place
+        zone: every leaf either writes (`vobj` and `cols` in place; the prop
+        table and `carried` anew), picked, placed and place_voxel bit for bit,
+        one launch a call. Both timed as replays of a graph of their launches
+        (`time_graph`) on a copy of the first tick's state, with the bound:
+        the prop rows and `carried` read and written once, and per pass the
+        agents' rows, the carried prop's row, the settle's cells and the
+        pick's cells read once, over the card's memory rate."""
+        import megaverse_tpu_torch.constants as C
+        from megaverse_tpu_torch.scenarios import components as SC
+        from megaverse_tpu_torch.scenarios.rearrange import PLACE_ZONE
+        from megaverse_tpu_torch.types import device_const, tree_map
+        env.flush()
+        scen, grid = env.scenario, env.scenario.cfg.grid
+        start = tree_map(torch.clone, env.state)
+        b, a = start.agents.pos.shape[:2]
+        act = torch.full((b, a), C.ACTION_INTERACT, dtype=torch.int32, device=self.dev)
+        zone = {"TowerBuilding": lambda st: st.scen.zone,
+                "Rearrange": lambda st: device_const(PLACE_ZONE, torch.int32, act).expand(b, 4),
+                }.get(scen.name, lambda st: None)
+        start = self.facing_boxes(start, zone(start), grid)
+        got, want = start, tree_map(torch.clone, start)
+        ticks = []
+        for t in range(2):
+            before = self.RC.LAUNCHES["stacking"]
+            res = SC.object_stacking_step(grid, got, act, place_zone=zone(got))
+            launched = self.RC.LAUNCHES["stacking"] - before
+            ref = SC.object_stacking_step_plain(grid, want, act, place_zone=zone(want))
+            torch.cuda.synchronize()
+            if launched != 1:
+                raise AssertionError(f"{label}: {launched} stacking launches for one call")
+            pairs = {"vobj": (res.state.vobj, ref.state.vobj),
+                     "cols": (res.state.cols, ref.state.cols),
+                     "carried": (res.state.agents.carried, ref.state.agents.carried),
+                     "picked": (res.picked, ref.picked), "placed": (res.placed, ref.placed),
+                     "place_voxel": (res.place_voxel, ref.place_voxel),
+                     **{f"props.{k}": (getattr(res.state.props, k), getattr(ref.state.props, k))
+                        for k in ("pos", "scale", "flags", "type", "yaw", "color")}}
+            for k, (x, y) in pairs.items():
+                if not torch.equal(x, y):
+                    diff = (x != y).reshape(b, -1).any(-1).nonzero().flatten()[:8].tolist()
+                    raise AssertionError(f"{label}: stacking kernel {k} differs from its "
+                                         f"plain version at tick {t} (envs {diff})")
+            ticks.append(dict(picked=int(ref.picked.sum()), placed=int(ref.placed.sum()),
+                              carrying=int((ref.state.agents.carried >= 0).sum())))
+            got, want = res.state, ref.state
+        if not ticks[0]["picked"] or not ticks[1]["placed"]:
+            raise AssertionError(f"{label}: the two ticks did not both pick and place: {ticks}")
+        timed = tree_map(torch.clone, start)
+        p = start.props.pos.shape[1]
+        table = 2 * b * (p * 25 + a * 2)
+        per_pass = b * a * (4 + a * 20 + 25 + 16 * 6 + 3 * 2 + 6)
+        nbytes = table + per_pass
+        case = dict(
+            envs=b, agents=a, props=p, ticks=ticks, equal="bit for bit",
+            ms=time_graph(lambda: SC.object_stacking_step(grid, timed, act,
+                                                          place_zone=zone(timed)), 20),
+            plain_ms=time_graph(lambda: SC.object_stacking_step_plain(
+                grid, timed, act, place_zone=zone(timed)), 3),
+            bytes=nbytes, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes")
+        self.stacking_cases[label] = case
+        emit({"phase": "stacking_vs_plain", "run": label, "scenario": scen.name, **case,
+              "launches_main_path_so_far": self.stacking_launches, "gpu": self.smi})
+        del start, got, want, res, ref, timed
+        torch.cuda.empty_cache()
+
+    def stacking_phase(self, envs: dict) -> None:
+        """`stacking_check` on each run of STACKING_RUNS (label -> its env)."""
+        for label, *_ in STACKING_RUNS:
+            self.stacking_check(label, envs[label])
+
     def capture_phase(self, envs: dict) -> None:
         """The captured tick against the eager one on the main path's 1024 x 1
         envs of CAPTURE_SCENES (a refill and a re-capture inside), one tick
@@ -2050,6 +2194,15 @@ class Smoke:
             kcc.update({f"ms_{label}": c["ms"], f"plain_ms_{label}": c["plain_ms"],
                         f"bound_ms_{label}": c["bound_ms"]})
         rows.append(kcc)
+        # the object-stacking kernel (replaces no TPU kernel), checked and
+        # timed at the end states of STACKING_RUNS in phase 3b
+        stack = {"name": "stacking", "route": "cuda", "source": STACKING_SOURCE,
+                 "replaces": STACKING_REPLACES, "launches": self.stacking_launches,
+                 "library_ms": None, "bound_by": "bytes", "max_abs_err": 0}
+        for label, c in self.stacking_cases.items():
+            stack.update({f"ms_{label}": c["ms"], f"plain_ms_{label}": c["plain_ms"],
+                          f"bound_ms_{label}": c["bound_ms"]})
+        rows.append(stack)
         for r in rows:
             if r["launches"] < 1:
                 raise AssertionError(f"{r['name']} was never launched on the main path")
@@ -2061,13 +2214,14 @@ def main() -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--phase", default="all",
                     choices=["all", "kernels", "train", "parallel", "bench", "obstacles",
-                             "capture", "kcc"],
+                             "capture", "kcc", "stacking"],
                     help="'kernels' stops after the kernel-vs-plain comparison, "
                          "'train' runs only the training paths, 'parallel' only "
                          "the data-parallel checks, 'bench' only the TowerBuilding "
                          "run through the sampling benchmark, 'obstacles' only the "
                          "Obstacles variants' runs, 'capture' the captured-vs-eager "
                          "checks on two envs, 'kcc' the KCC kernel's check on its four "
+                         "end states, 'stacking' the stacking kernel's check on its four "
                          "end states (none of them prints the result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2104,6 +2258,10 @@ def main() -> int:
     if args.phase == "kcc":
         smoke.kcc_phase({run[0]: smoke.drive(*run[:6], params=run[6], keep=True)
                          for run in KCC_RUNS})
+        return 0
+    if args.phase == "stacking":
+        smoke.stacking_phase({run[0]: smoke.drive(*run[:6], params=run[6], keep=True)
+                              for run in STACKING_RUNS})
         return 0
     smoke.kernels_vs_plain()
     if args.phase == "kernels":

@@ -77,6 +77,7 @@ AGENT_LOOK_DOWN_FACTOR = 1.1           # looking down is faster, ref agent.cpp:1
 AGENT_BODY_OFFSET_Y = 0.05             # visual offset, ref agent.cpp:95
 AGENT_CAMERA_OFFSET_Y = 0.41           # camera child offset, ref agent.cpp:33
 AGENT_PICKUP_SPOT = (0.0, -0.44, -1.0)  # interact anchor (camera-local), ref agent.cpp:40
+CARRYING_SCALE = 0.78                  # a carried object's scale, ref component_object_stacking.hpp:63
 
 # ---------------------------------------------------------------------------
 # Camera (ref: env_renderer.hpp:34-38 — fov 100 deg, near 0.01, far 120,

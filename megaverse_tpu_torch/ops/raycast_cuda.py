@@ -102,11 +102,12 @@ FRAME_K = 64
 VISIT_SEGMENTS = TILE_W // 32
 
 # Launch counts of the port's hand-written kernels, one per render form, one
-# for the masked copy (ops/masked_copy.py) and one for the character
-# controller (ops/kcc.py): each wrapper adds one where it launches its kernel,
-# nowhere else. A merged launch counts as B6 whatever it traverses.
+# for the masked copy (ops/masked_copy.py), one for the character controller
+# (ops/kcc.py) and one for object stacking (ops/stacking.py): each wrapper
+# adds one where it launches its kernel, nowhere else. A merged launch counts
+# as B6 whatever it traverses.
 FORMS = ("render_b1", "render_b2", "render_b3", "render_b4", "render_b5", "render_b6")
-LAUNCHES = {name: 0 for name in FORMS + ("masked_copy", "kcc")}
+LAUNCHES = {name: 0 for name in FORMS + ("masked_copy", "kcc", "stacking")}
 
 
 def reset_launch_counts() -> None:

@@ -7,6 +7,8 @@ Branch-free batched reimplementations of the reference ScenarioComponents:
   scenarios/include/scenarios/component_object_stacking.hpp:28-206. Object
   pointers become integer prop indices: the grid field `vobj` holds
   (prop index + 1) per voxel, and AgentState.carried holds the carried prop.
+  On CUDA tensors one launch of a hand-written kernel (ops/stacking.py); the
+  batched code here is its plain version.
 - fall detection (teleport fallen agents back):
   scenarios/include/scenarios/component_fall_detection.hpp:16-62.
 - hiding collected reward diamonds (Collect, Obstacles).
@@ -17,17 +19,18 @@ All tensors carry the env batch explicitly: agents [B, A, ...], props
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from megaverse_tpu_torch import constants as C
 from megaverse_tpu_torch.ops import grid as G
+from megaverse_tpu_torch.ops import stacking as S
 from megaverse_tpu_torch.types import (
     EnvState, GridConfig, PROP_FLAG_SOLID, PROP_FLAG_VISIBLE, device_const)
 
-CARRYING_SCALE = 0.78  # component_object_stacking.hpp:63
+CARRYING_SCALE = C.CARRYING_SCALE  # component_object_stacking.hpp:63
 
 
 def rot_yaw_pitch(yaw, pitch, v):
@@ -106,26 +109,64 @@ class StackingResult(NamedTuple):
     place_voxel: torch.Tensor  # int32 [B, A, 3] voxel where placed (valid if placed)
 
 
+def in_zone_xz(zone: torch.Tensor, voxel: torch.Tensor) -> torch.Tensor:
+    """Voxels [B,A,3] inside the x/z rectangle zone [B,4] = (x0, x1, z0, z1),
+    half-open -> bool [B,A] (TowerBuilding's isInBuildingZone,
+    scenario_tower_building.cpp:227-230; Rearrange's placement area)."""
+    z = zone[:, None, :]
+    return ((voxel[..., 0] >= z[..., 0]) & (voxel[..., 0] < z[..., 1])
+            & (voxel[..., 2] >= z[..., 2]) & (voxel[..., 2] < z[..., 3]))
+
+
 def object_stacking_step(
     cfg: GridConfig,
     state: EnvState,
     action: torch.Tensor,
-    can_place: Optional[Callable[[EnvState, torch.Tensor], torch.Tensor]] = None,
+    place_zone: Optional[torch.Tensor] = None,
     max_drop_scan: int = 16,
 ) -> StackingResult:
     """Interact handling: place carried object / pick up facing object.
 
     Mirrors ObjectStackingComponent::onInteractAction
-    (component_object_stacking.hpp:59-167). Multi-agent ticks are processed
-    SEQUENTIALLY in agent order, exactly like the reference's per-agent loop:
-    agent i's placement/pick mutates the world state agent i+1 then queries
-    within the same tick. Single-agent envs take the one-pass path directly.
+    (component_object_stacking.hpp:59-167), agent by agent in index order.
+    On CUDA tensors one launch of the stacking kernel
+    (ops/stacking.stacking_step), bit-equal to the plain version
+    `object_stacking_step_plain`, which the CPU takes. `vobj` and `cols` are
+    updated in place.
 
-    can_place(state, voxel [B,A,3]) -> bool [B,A] optional hook (ref
-    canPlaceObject callback)."""
+    place_zone: None, or int32 [B,4] (x0, x1, z0, z1), half-open: objects are
+    placed only in voxels inside it (ref canPlaceObject callback)."""
+    if state.vobj.device.type != "cuda":
+        return object_stacking_step_plain(cfg, state, action, place_zone, max_drop_scan)
+    agents, props = state.agents, state.props
+    rows = dict(pos=agents.pos.contiguous(), yaw=agents.yaw.contiguous(),
+                pitch=agents.pitch.contiguous(), carried=agents.carried.contiguous())
+    table = dict(pos=props.pos.contiguous(), scale=props.scale.contiguous(),
+                 flags=props.flags.contiguous())
+    pos, scale, flags, carried, picked, placed, place_voxel = S.stacking_step(
+        cfg, state.replace(agents=agents.replace(**rows), props=props.replace(**table)),
+        action.contiguous(), place_zone, max_drop_scan)
+    state = state.replace(props=props.replace(pos=pos, scale=scale, flags=flags),
+                          agents=agents.replace(carried=carried))
+    return StackingResult(state, picked, placed, place_voxel)
+
+
+def object_stacking_step_plain(
+    cfg: GridConfig,
+    state: EnvState,
+    action: torch.Tensor,
+    place_zone: Optional[torch.Tensor] = None,
+    max_drop_scan: int = 16,
+) -> StackingResult:
+    """Plain version of `object_stacking_step` (any device).
+
+    Multi-agent ticks are processed SEQUENTIALLY in agent order, exactly like
+    the reference's per-agent loop: agent i's placement/pick mutates the
+    world state agent i+1 then queries within the same tick. Single-agent
+    envs take the one-pass path directly."""
     num_agents = state.agents.pos.shape[1]
     if num_agents == 1:
-        return _stacking_pass(cfg, state, action, can_place, max_drop_scan)
+        return _stacking_pass(cfg, state, action, place_zone, max_drop_scan)
 
     picked = torch.zeros_like(state.agents.jumping)
     placed = torch.zeros_like(picked)
@@ -135,7 +176,7 @@ def object_stacking_step(
         # only agent a interacts in this pass (the conflict-resolution
         # matrices inside the pass become no-ops)
         act_a = torch.where(idx == a, action, action & ~C.ACTION_INTERACT)
-        res = _stacking_pass(cfg, state, act_a, can_place, max_drop_scan)
+        res = _stacking_pass(cfg, state, act_a, place_zone, max_drop_scan)
         state = res.state
         picked = picked | res.picked
         placed = placed | res.placed
@@ -143,7 +184,7 @@ def object_stacking_step(
     return StackingResult(state, picked, placed, place_voxel)
 
 
-def _stacking_pass(cfg, state, action, can_place=None, max_drop_scan=16) -> StackingResult:
+def _stacking_pass(cfg, state, action, place_zone=None, max_drop_scan=16) -> StackingResult:
     agents = state.agents
     num_agents = agents.pos.shape[1]
     dev = agents.pos.device
@@ -174,8 +215,8 @@ def _stacking_pass(cfg, state, action, can_place=None, max_drop_scan=16) -> Stac
     collides_agent = (same & other).any(dim=2)
 
     ok_place = want_place & voxel_empty & ~collides_agent
-    if can_place is not None:
-        ok_place = ok_place & can_place(state, place_voxel)
+    if place_zone is not None:
+        ok_place = ok_place & in_zone_xz(place_zone, place_voxel)
 
     # Gravity settle: descend while the voxel below is non-solid and has no
     # object (hpp:101-115), bounded scan.

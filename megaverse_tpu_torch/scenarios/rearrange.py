@@ -32,6 +32,8 @@ K_ALL = "rearrangeAllObjectsCorrectPosition"
 N_MAX = 8
 LEFT = np.array([5, 2, 5])
 RIGHT = np.array([13, 2, 5])
+# (x0, x1, z0, z1) of the voxels objects may be placed in
+PLACE_ZONE = (int(RIGHT[0]) - 2, int(RIGHT[0]) + 3, int(RIGHT[2]) - 2, int(RIGHT[2]) + 3)
 
 # shape id -> (prop type, visual scale) (arrangementDrawables, cpp:204-211)
 _SHAPES = (
@@ -312,13 +314,10 @@ class RearrangeScenario(Scenario):
         f32 = torch.float32
         rewards = torch.zeros_like(state.last_reward)
         cfg = self.cfg.grid
-        right = device_const(RIGHT, torch.int32, action)
-
-        def can_place(st, voxel):
-            delta = voxel - right
-            return (delta[..., 0].abs() <= 2) & (delta[..., 2].abs() <= 2)
-
-        res = object_stacking_step(cfg, state, action, can_place=can_place)
+        # objects go down within 2 voxels of the right pedestal's centre in x
+        # and z: the half-open rectangle RIGHT +- (2, 3), one row for every env
+        zone = device_const(PLACE_ZONE, torch.int32, action).expand(action.shape[0], 4)
+        res = object_stacking_step(cfg, state, action, place_zone=zone)
         state = res.state
         sc: RearrangeState = state.scen
 

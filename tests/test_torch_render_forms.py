@@ -220,7 +220,8 @@ def test_form_selection_and_argument_checks(scenes):
     assert TRC.select_form(merge_tiles=True) == (1, "render_b6")
     before = dict(TRC.LAUNCHES)
     TRC.render_packed(sc["cams"], height=H, width=W, **t["b5"])
-    assert TRC.LAUNCHES == before and set(before) == {*TRC.FORMS, "masked_copy", "kcc"}
+    assert TRC.LAUNCHES == before and set(before) == {*TRC.FORMS, "masked_copy", "kcc",
+                                                     "stacking"}
 
 
 # ---------------------------------------------------------------------------
